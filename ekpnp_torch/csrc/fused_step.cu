@@ -1,0 +1,505 @@
+// Fused EK-PNP-thermal LBM step for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel of ekpnp/pallas/fused_step.py (build_fused_step,
+// its `kernel` closure and the pl.pallas_call), single-device form.  One
+// step of every active population: fluid f, ions h / hn, temperature g.
+//
+//   collide_kernel    one thread per node (x fastest, so a warp reads
+//                     contiguous x for every direction):
+//                     moments -> E = -grad(phi) from phi's six neighbours
+//                     (periodic in x, y; Ez[0] = Ez[1], Ez[NZ-1] = Ez[NZ-2])
+//                     -> Coulomb + external + buoyancy force -> half-force
+//                     velocity (z=0: -numer(z=1) / rho(z=0), plane 1
+//                     recomputed by the z=0 thread) -> TRT + Guo for the
+//                     fluid, TRT with drift u + K E for the ions, TRT (+
+//                     Joule source) for the temperature.  It writes the
+//                     post-collision populations into a scratch set; at
+//                     z=0 and NZ-1 the fluid's reflected PRE-collision
+//                     populations instead (moving-wall term at the top).
+//                     It also writes the Poisson RHS -kappa (c+ - c-) / eps
+//                     for z = 1..NZ-2 from the pre-collision ion moments.
+//   stream_bc_kernel  one thread per node: pull post[d, z-ez, y-ey, x-ex]
+//                     with periodic wrap in all three axes (the fluid's
+//                     z-wrap through the reflected wall planes is the
+//                     reference semantics), then the scalar wall BCs from
+//                     the post-collision values at the same node: ion
+//                     noflux / injection / zerograd-top, temperature
+//                     anti-bounce-back.  zerograd-top: every ion read of
+//                     post plane NZ-1 takes plane NZ-2, and the top plane
+//                     is post[d, NZ-2, y-ey, x-ex] for every d.
+//
+// Bound: device-memory bytes.  The pair moves 1736 B/node per step with
+// every field on D3Q27 in f32 (collide: populations read + post written,
+// phi read, rhs written; stream: post read + populations written), 776 B
+// with D3Q7 scalars -- twice the population traffic of one fused pass.
+// Fusing the two launches into one pass is the first item of the perf
+// queue (ROADMAP.md).  Constants are folded in double on the host and cast
+// to T, as the TPU kernel's cst() does.
+//
+// Plain C interface for ctypes; every entry point returns the
+// cudaGetLastError() of its launch (or -1 for an unsupported lattice pair).
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+// Host-side constant blocks, field order identical to _INTS / _CONSTS in
+// ekpnp_torch/kernels/fused_step.py.
+struct HostInts {
+  int nx, ny, nz, qf, qs;
+  int ek, nspec, thermal, cbc;  // cbc: 0 noflux, 1 injection, 2 zerograd-top
+  int joule_on;                 // Joule source active (joule != 0 and EK)
+  int wneg[3];                  // wall reflection negated: h, hn, g
+};
+
+struct HostConsts {
+  double inv_cfl, half_dt, dt;
+  double kappa, rhs_scale, ext_field, exf, buoy;
+  double hdx, hdy, hdz;
+  double f_tscale, f_ics2, f_op, f_om, f_splus, f_sminus;
+  double s_tscale, s_ics2;
+  double h_op, h_om, K, hn_op, hn_om, Kn, g_op, g_om, joule;
+  double wf[27], ws[27], mw[27], gjw[27], fwics2[27];
+  double wadd[3][2][27];        // [h, hn, g][z=0, z=NZ-1][d] added at the wall
+};
+
+template <typename T>
+struct Params {
+  int nx, ny, nz, ek, nspec, thermal, cbc, joule_on;
+  int wneg[3];
+  T inv_cfl, half_dt, dt, kappa, rhs_scale, ext_field, exf, buoy, hdx, hdy, hdz;
+  T f_tscale, f_ics2, f_op, f_om, f_splus, f_sminus;
+  T s_tscale, s_ics2, h_op, h_om, K, hn_op, hn_om, Kn, g_op, g_om, joule;
+  T wf[27], ws[27], mw[27], gjw[27], fwics2[27];
+  T wadd[3][2][27];
+};
+
+template <typename T>
+Params<T> make_params(const HostInts& I, const HostConsts& C) {
+  Params<T> P;
+  P.nx = I.nx; P.ny = I.ny; P.nz = I.nz; P.ek = I.ek; P.nspec = I.nspec;
+  P.thermal = I.thermal; P.cbc = I.cbc; P.joule_on = I.joule_on;
+  for (int k = 0; k < 3; ++k) P.wneg[k] = I.wneg[k];
+  P.inv_cfl = T(C.inv_cfl); P.half_dt = T(C.half_dt); P.dt = T(C.dt);
+  P.kappa = T(C.kappa); P.rhs_scale = T(C.rhs_scale);
+  P.ext_field = T(C.ext_field); P.exf = T(C.exf); P.buoy = T(C.buoy);
+  P.hdx = T(C.hdx); P.hdy = T(C.hdy); P.hdz = T(C.hdz);
+  P.f_tscale = T(C.f_tscale); P.f_ics2 = T(C.f_ics2);
+  P.f_op = T(C.f_op); P.f_om = T(C.f_om);
+  P.f_splus = T(C.f_splus); P.f_sminus = T(C.f_sminus);
+  P.s_tscale = T(C.s_tscale); P.s_ics2 = T(C.s_ics2);
+  P.h_op = T(C.h_op); P.h_om = T(C.h_om); P.K = T(C.K);
+  P.hn_op = T(C.hn_op); P.hn_om = T(C.hn_om); P.Kn = T(C.Kn);
+  P.g_op = T(C.g_op); P.g_om = T(C.g_om); P.joule = T(C.joule);
+  for (int d = 0; d < 27; ++d) {
+    P.wf[d] = T(C.wf[d]); P.ws[d] = T(C.ws[d]);
+    P.mw[d] = T(C.mw[d]); P.gjw[d] = T(C.gjw[d]);
+    P.fwics2[d] = T(C.fwics2[d]);
+    for (int k = 0; k < 3; ++k)
+      for (int s = 0; s < 2; ++s) P.wadd[k][s][d] = T(C.wadd[k][s][d]);
+  }
+  return P;
+}
+
+// D3Q27 directions (ex, ey, ez); D3Q19 and D3Q7 are its prefixes.  The
+// opposite of d >= 1 is d + 1 for odd d, d - 1 for even d.
+__device__ __forceinline__ int dir_e(int d, int a) {
+  const int tab[27][3] = {
+      {0, 0, 0},   {1, 0, 0},   {-1, 0, 0},  {0, 1, 0},   {0, -1, 0},
+      {0, 0, 1},   {0, 0, -1},  {1, 1, 0},   {-1, -1, 0}, {1, 0, 1},
+      {-1, 0, -1}, {0, 1, 1},   {0, -1, -1}, {1, -1, 0},  {-1, 1, 0},
+      {1, 0, -1},  {-1, 0, 1},  {0, 1, -1},  {0, -1, 1},  {1, 1, 1},
+      {-1, -1, -1}, {1, 1, -1}, {-1, -1, 1}, {1, -1, 1},  {-1, 1, -1},
+      {-1, 1, 1},  {1, -1, -1}};
+  return tab[d][a];
+}
+
+__device__ __forceinline__ int dir_opp(int d) {
+  return d == 0 ? 0 : ((d & 1) ? d + 1 : d - 1);
+}
+
+template <typename T>
+__device__ __forceinline__ T edot(int d, T ax, T ay, T az) {
+  T acc = T(0);
+  const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
+  if (ex > 0) acc += ax; else if (ex < 0) acc -= ax;
+  if (ey > 0) acc += ay; else if (ey < 0) acc -= ay;
+  if (ez > 0) acc += az; else if (ez < 0) acc -= az;
+  return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ T ld(const T* __restrict__ p, int64_t i) {
+  return __ldg(p + i);
+}
+
+template <int Q, typename T>
+__device__ __forceinline__ T moment0(const T* __restrict__ a, int64_t N,
+                                     int64_t idx) {
+  T m = T(0);
+#pragma unroll
+  for (int d = 0; d < Q; ++d) m += ld(a, d * N + idx);
+  return m;
+}
+
+// Pre-collision macroscopic state of one node.
+template <typename T>
+struct NodeMacro {
+  T rho, nx, ny, nz;     // density and velocity numerator (mom/CFL + dt F/2)
+  T fx, fy, fz;          // body force
+  T c, cn, tm;           // ion concentrations and temperature
+  T Ex, Ey, Ez;          // E = -grad(phi)
+};
+
+template <typename T, int QF, int QS>
+__device__ __forceinline__ void node_macro(
+    const Params<T>& P, const T* __restrict__ f, const T* __restrict__ h,
+    const T* __restrict__ hn, const T* __restrict__ g,
+    const T* __restrict__ phi, int z, int y, int x, int64_t N,
+    NodeMacro<T>& o) {
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const int64_t idx = z * plane + (int64_t)y * P.nx + x;
+  T rho = T(0), mx = T(0), my = T(0), mz = T(0);
+#pragma unroll
+  for (int d = 0; d < QF; ++d) {
+    const T v = ld(f, d * N + idx);
+    rho += v;
+    const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
+    if (ex > 0) mx += v; else if (ex < 0) mx -= v;
+    if (ey > 0) my += v; else if (ey < 0) my -= v;
+    if (ez > 0) mz += v; else if (ez < 0) mz -= v;
+  }
+  T fx, fy, fz;
+  o.c = o.cn = o.tm = T(0);
+  o.Ex = o.Ey = o.Ez = T(0);
+  if (P.ek) {
+    const int xm = x == 0 ? P.nx - 1 : x - 1, xp = x == P.nx - 1 ? 0 : x + 1;
+    const int ym = y == 0 ? P.ny - 1 : y - 1, yp = y == P.ny - 1 ? 0 : y + 1;
+    const int zc = z == 0 ? 1 : (z == P.nz - 1 ? P.nz - 2 : z);
+    const int64_t row = z * plane + (int64_t)y * P.nx;
+    o.Ex = (ld(phi, row + xm) - ld(phi, row + xp)) * P.hdx;
+    o.Ey = (ld(phi, z * plane + (int64_t)ym * P.nx + x)
+            - ld(phi, z * plane + (int64_t)yp * P.nx + x)) * P.hdy;
+    o.Ez = (ld(phi, (zc - 1) * plane + (int64_t)y * P.nx + x)
+            - ld(phi, (zc + 1) * plane + (int64_t)y * P.nx + x)) * P.hdz;
+    o.c = moment0<QS>(h, N, idx);
+    if (P.nspec == 2) o.cn = moment0<QS>(hn, N, idx);
+    const T q = P.kappa * (o.c - o.cn);
+    fx = q * (o.Ex + P.ext_field) + P.exf;
+    fy = q * o.Ey;
+    fz = q * o.Ez;
+  } else {
+    fx = P.exf;
+    fy = T(0);
+    fz = T(0);
+  }
+  if (P.thermal) {
+    o.tm = moment0<QS>(g, N, idx);
+    fz = fz + P.buoy * o.tm;
+  }
+  o.rho = rho;
+  o.fx = fx; o.fy = fy; o.fz = fz;
+  o.nx = mx * P.inv_cfl + P.half_dt * fx;
+  o.ny = my * P.inv_cfl + P.half_dt * fy;
+  o.nz = mz * P.inv_cfl + P.half_dt * fz;
+}
+
+// Second-order equilibrium of direction d, in the plain version's operation
+// order: (w m) (omusq + t (1 + t/2)), t = (e . v) tscale.
+template <typename T>
+__device__ __forceinline__ T feq_dir(int d, T wm, T omusq, T vx, T vy, T vz,
+                                     T tscale) {
+  const T t = edot(d, vx, vy, vz) * tscale;
+  return wm * (omusq + t * (T(1) + T(0.5) * t));
+}
+
+// Guo forcing population of fluid direction d:
+// (w / cs^2) [ (e/CFL - u) . F + (e.u)(e.F) / (CFL^2 cs^2) ].
+template <typename T>
+__device__ __forceinline__ T guo_dir(int d, const Params<T>& P, T ux, T uy,
+                                     T uz, T fx, T fy, T fz) {
+  const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
+  const T c = P.inv_cfl;
+  const T cu = (ex > 0 ? c : (ex < 0 ? -c : T(0))) - ux;
+  const T cv = (ey > 0 ? c : (ey < 0 ? -c : T(0))) - uy;
+  const T cw = (ez > 0 ? c : (ez < 0 ? -c : T(0))) - uz;
+  const T eu = edot(d, ux, uy, uz) * P.inv_cfl;
+  const T eF = edot(d, fx, fy, fz) * P.inv_cfl;
+  const T core = ((cu * fx + cv * fy) + cw * fz) + (eu * eF) * P.f_ics2;
+  return P.fwics2[d] * core;
+}
+
+// TRT update of one field at one node, pair by pair (d, opp d), in the
+// plain version's operation order (ekpnp_torch/ops/collide.py _trt_update):
+//   out = p - (op (p+ - feq+) + om (p- - feq-))  [+ dt (s+ S+ + s- S-)]
+//         [+ dt w S_iso].
+// Built with --fmad=false, so the f64 kernel repeats the plain version's
+// roundings and the golden values hold through it.
+template <int Q, bool FORCE, bool ISO, typename T>
+__device__ __forceinline__ void trt_field(
+    const T* __restrict__ in, T* __restrict__ out, int64_t N, int64_t idx,
+    const T* w, T m, T vx, T vy, T vz, T tscale, T ics2, T op, T om,
+    const Params<T>& P, T fx, T fy, T fz, T S) {
+  const T omusq = T(1) - (T(0.5) * ((vx * vx + vy * vy) + vz * vz)) * ics2;
+
+  const T p0 = ld(in, idx);
+  T o0 = p0 - op * (p0 - feq_dir(0, w[0] * m, omusq, vx, vy, vz, tscale));
+  if (FORCE) o0 = o0 + P.dt * (P.f_splus * guo_dir(0, P, vx, vy, vz, fx, fy, fz));
+  if (ISO) o0 = o0 + P.gjw[0] * S;
+  out[idx] = o0;
+#pragma unroll
+  for (int i = 1; i < Q; i += 2) {
+    const int j = i + 1;
+    const T pi = ld(in, i * N + idx), pj = ld(in, j * N + idx);
+    const T wm = w[i] * m;
+    const T fi = feq_dir(i, wm, omusq, vx, vy, vz, tscale);
+    const T fj = feq_dir(j, wm, omusq, vx, vy, vz, tscale);
+    const T a = op * (T(0.5) * (pi + pj) - T(0.5) * (fi + fj));
+    const T b = om * (T(0.5) * (pi - pj) - T(0.5) * (fi - fj));
+    T oi = pi - (a + b);
+    T oj = pj - (a - b);
+    if (FORCE) {
+      const T gi = guo_dir(i, P, vx, vy, vz, fx, fy, fz);
+      const T gj = guo_dir(j, P, vx, vy, vz, fx, fy, fz);
+      const T sp = P.f_splus * (T(0.5) * (gi + gj));
+      const T sm = P.f_sminus * (T(0.5) * (gi - gj));
+      oi = oi + P.dt * (sp + sm);
+      oj = oj + P.dt * (sp - sm);
+    }
+    if (ISO) {
+      const T iso = P.gjw[i] * S;
+      oi = oi + iso;
+      oj = oj + iso;
+    }
+    out[i * N + idx] = oi;
+    out[j * N + idx] = oj;
+  }
+}
+
+template <typename T, int QF, int QS>
+__global__ void __launch_bounds__(128) collide_kernel(
+    const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
+    const T* __restrict__ hn, const T* __restrict__ g,
+    const T* __restrict__ phi, T* __restrict__ pf, T* __restrict__ ph,
+    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs) {
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const int64_t N = plane * P.nz;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= N) return;
+  const int x = (int)(idx % P.nx);
+  const int y = (int)((idx / P.nx) % P.ny);
+  const int z = (int)(idx / plane);
+
+  NodeMacro<T> m;
+  node_macro<T, QF, QS>(P, f, h, hn, g, phi, z, y, x, N, m);
+  T ux, uy, uz;
+  if (z == 0) {
+    // wall velocity extrapolated from plane 1's numerator, local wall rho
+    NodeMacro<T> m1;
+    node_macro<T, QF, QS>(P, f, h, hn, g, phi, 1, y, x, N, m1);
+    ux = -m1.nx / m.rho;
+    uy = -m1.ny / m.rho;
+    uz = -m1.nz / m.rho;
+  } else {
+    ux = m.nx / m.rho;
+    uy = m.ny / m.rho;
+    uz = m.nz / m.rho;
+  }
+
+  if (z == 0 || z == P.nz - 1) {
+    // fluid bounce-back of the pre-collision populations (+ moving wall)
+    const bool top = z == P.nz - 1;
+#pragma unroll
+    for (int d = 0; d < QF; ++d) {
+      T v = ld(f, dir_opp(d) * N + idx);
+      if (top) v = v + P.mw[d];
+      pf[d * N + idx] = v;
+    }
+  } else {
+    trt_field<QF, true, false>(f, pf, N, idx, P.wf, m.rho, ux, uy, uz,
+                               P.f_tscale, P.f_ics2, P.f_op, P.f_om, P,
+                               m.fx, m.fy, m.fz, T(0));
+  }
+
+  if (P.ek) {
+    trt_field<QS, false, false>(h, ph, N, idx, P.ws, m.c, ux + P.K * m.Ex,
+                                uy + P.K * m.Ey, uz + P.K * m.Ez, P.s_tscale,
+                                P.s_ics2, P.h_op, P.h_om, P, T(0), T(0),
+                                T(0), T(0));
+    if (P.nspec == 2)
+      trt_field<QS, false, false>(hn, phn, N, idx, P.ws, m.cn,
+                                  ux + P.Kn * m.Ex, uy + P.Kn * m.Ey,
+                                  uz + P.Kn * m.Ez, P.s_tscale, P.s_ics2,
+                                  P.hn_op, P.hn_om, P, T(0), T(0), T(0), T(0));
+    if (z >= 1 && z <= P.nz - 2) rhs[idx - plane] = -(P.rhs_scale * (m.c - m.cn));
+  }
+  if (P.thermal) {
+    if (P.joule_on) {
+      const T S = (P.joule * (m.c + m.cn))
+                  * (m.Ex * m.Ex + m.Ey * m.Ey + m.Ez * m.Ez);
+      trt_field<QS, false, true>(g, pg, N, idx, P.ws, m.tm, ux, uy, uz,
+                                 P.s_tscale, P.s_ics2, P.g_op, P.g_om, P,
+                                 T(0), T(0), T(0), S);
+    } else {
+      trt_field<QS, false, false>(g, pg, N, idx, P.ws, m.tm, ux, uy, uz,
+                                  P.s_tscale, P.s_ics2, P.g_op, P.g_om, P,
+                                  T(0), T(0), T(0), T(0));
+    }
+  }
+}
+
+// Stream one scalar field into node (z, y, x) and apply its wall BC.
+// k: 0 = h, 1 = hn, 2 = g;  ion = the charge BC applies (k < 2).
+template <int Q, typename T>
+__device__ __forceinline__ void stream_scalar(
+    const Params<T>& P, const T* __restrict__ post, T* __restrict__ out,
+    int k, bool ion, int z, int y, int x, int64_t N, int64_t idx) {
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const bool zg = ion && P.cbc == 2;
+  const bool wall = z == 0 || z == P.nz - 1;
+  if (wall && !(zg && z == P.nz - 1)) {
+    const int s = z == 0 ? 0 : 1;
+    const bool neg = P.wneg[k] != 0;
+#pragma unroll
+    for (int d = 0; d < Q; ++d) {
+      const T v = ld(post, dir_opp(d) * N + idx);
+      out[d * N + idx] = (neg ? -v : v) + P.wadd[k][s][d];
+    }
+    return;
+  }
+#pragma unroll
+  for (int d = 0; d < Q; ++d) {
+    const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
+    int sz = z - ez;
+    if (zg && (z == P.nz - 1 || sz == P.nz - 1)) sz = P.nz - 2;
+    const int sy = (y - ey + P.ny) % P.ny, sx = (x - ex + P.nx) % P.nx;
+    out[d * N + idx] = ld(post, d * N + sz * plane + (int64_t)sy * P.nx + sx);
+  }
+}
+
+template <typename T, int QF, int QS>
+__global__ void __launch_bounds__(128) stream_bc_kernel(
+    const Params<T> P, const T* __restrict__ pf, const T* __restrict__ ph,
+    const T* __restrict__ phn, const T* __restrict__ pg, T* __restrict__ f1,
+    T* __restrict__ h1, T* __restrict__ hn1, T* __restrict__ g1) {
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const int64_t N = plane * P.nz;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= N) return;
+  const int x = (int)(idx % P.nx);
+  const int y = (int)((idx / P.nx) % P.ny);
+  const int z = (int)(idx / plane);
+
+#pragma unroll
+  for (int d = 0; d < QF; ++d) {
+    const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
+    const int sz = (z - ez + P.nz) % P.nz;
+    const int sy = (y - ey + P.ny) % P.ny, sx = (x - ex + P.nx) % P.nx;
+    f1[d * N + idx] = ld(pf, d * N + sz * plane + (int64_t)sy * P.nx + sx);
+  }
+  if (P.ek) {
+    stream_scalar<QS>(P, ph, h1, 0, true, z, y, x, N, idx);
+    if (P.nspec == 2) stream_scalar<QS>(P, phn, hn1, 1, true, z, y, x, N, idx);
+  }
+  if (P.thermal) stream_scalar<QS>(P, pg, g1, 2, false, z, y, x, N, idx);
+}
+
+constexpr int kThreads = 128;
+
+inline unsigned blocks_for(const HostInts& I) {
+  const int64_t n = (int64_t)I.nx * I.ny * I.nz;
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+template <typename T, int QF, int QS>
+int launch_collide(const HostInts& I, const HostConsts& C, const void* f,
+                   const void* h, const void* hn, const void* g,
+                   const void* phi, void* pf, void* ph, void* phn, void* pg,
+                   void* rhs, cudaStream_t s) {
+  collide_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
+      make_params<T>(I, C), (const T*)f, (const T*)h, (const T*)hn,
+      (const T*)g, (const T*)phi, (T*)pf, (T*)ph, (T*)phn, (T*)pg, (T*)rhs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int QF, int QS>
+int launch_stream_bc(const HostInts& I, const HostConsts& C, const void* pf,
+                     const void* ph, const void* phn, const void* pg,
+                     void* f1, void* h1, void* hn1, void* g1, cudaStream_t s) {
+  stream_bc_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
+      make_params<T>(I, C), (const T*)pf, (const T*)ph, (const T*)phn,
+      (const T*)pg, (T*)f1, (T*)h1, (T*)hn1, (T*)g1);
+  return (int)cudaGetLastError();
+}
+
+// (fluid Q, scalar Q) pairs the configurations can produce
+#define EKPNP_LATTICE_PAIRS(X) \
+  X(27, 27) X(27, 19) X(27, 7) X(19, 19) X(19, 27) X(19, 7)
+
+template <typename T>
+int collide_any(const HostInts& I, const HostConsts& C, const void* f,
+                const void* h, const void* hn, const void* g, const void* phi,
+                void* pf, void* ph, void* phn, void* pg, void* rhs,
+                cudaStream_t s) {
+#define EKPNP_CASE(QF_, QS_)                                               \
+  if (I.qf == QF_ && I.qs == QS_)                                          \
+    return launch_collide<T, QF_, QS_>(I, C, f, h, hn, g, phi, pf, ph, phn, \
+                                       pg, rhs, s);
+  EKPNP_LATTICE_PAIRS(EKPNP_CASE)
+#undef EKPNP_CASE
+  return -1;
+}
+
+template <typename T>
+int stream_bc_any(const HostInts& I, const HostConsts& C, const void* pf,
+                  const void* ph, const void* phn, const void* pg, void* f1,
+                  void* h1, void* hn1, void* g1, cudaStream_t s) {
+#define EKPNP_CASE(QF_, QS_)                                                \
+  if (I.qf == QF_ && I.qs == QS_)                                           \
+    return launch_stream_bc<T, QF_, QS_>(I, C, pf, ph, phn, pg, f1, h1, hn1, \
+                                         g1, s);
+  EKPNP_LATTICE_PAIRS(EKPNP_CASE)
+#undef EKPNP_CASE
+  return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sizes of the two constant blocks, for the Python side to check its
+// packing against.
+int ekpnp_abi(int* n_ints, int* n_consts) {
+  *n_ints = (int)(sizeof(HostInts) / sizeof(int));
+  *n_consts = (int)(sizeof(HostConsts) / sizeof(double));
+  return 0;
+}
+
+int ekpnp_collide(int is_f64, const int* ints, const double* consts,
+                  const void* f, const void* h, const void* hn, const void* g,
+                  const void* phi, void* pf, void* ph, void* phn, void* pg,
+                  void* rhs, void* stream) {
+  const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
+  const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return is_f64 ? collide_any<double>(I, C, f, h, hn, g, phi, pf, ph, phn, pg,
+                                      rhs, s)
+                : collide_any<float>(I, C, f, h, hn, g, phi, pf, ph, phn, pg,
+                                     rhs, s);
+}
+
+int ekpnp_stream_bc(int is_f64, const int* ints, const double* consts,
+                    const void* pf, const void* ph, const void* phn,
+                    const void* pg, void* f1, void* h1, void* hn1, void* g1,
+                    void* stream) {
+  const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
+  const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return is_f64 ? stream_bc_any<double>(I, C, pf, ph, phn, pg, f1, h1, hn1,
+                                        g1, s)
+                : stream_bc_any<float>(I, C, pf, ph, phn, pg, f1, h1, hn1, g1,
+                                       s);
+}
+
+}  // extern "C"
