@@ -9,19 +9,28 @@ printing the final line, if any phase fails:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the fused step kernels from csrc/fused_step.cu (nvcc, sm_90a);
   3. kernels vs their plain PyTorch versions on the card, physics cases
-     A-J and the reference's own 50x8x51, f64 and f32, 3 steps each:
-     max|d|/max|ref| per field <= 1e-12 (f64) / 1e-5 (f32);
-  4. golden: `reference`, f64, initialize + 60 steps through the kernels,
-     the golden values of tests/test_golden.py at rtol 1e-9;
+     A-J and the reference's own 50x8x51, f64 and f32, 3 steps each, every
+     collide form (plain RHS; with EK on also hartley_x and phi_hx, psi
+     encoded from the case's phi): max|d|/max|ref| per field <= 1e-12
+     (f64) / 1e-5 (f32);
+  4. golden: `reference`, f64, initialize + 60 steps of the default
+     multi_step (the phi_hx route, its launches counted), the golden
+     values of tests/test_golden.py at rtol 1e-9;
   5. main path at full size through the port's API: `ek-pnp-thermal`
      (256x256x257, f32, every field D3Q27): PB init (501 iterations, with
      pb_omega 0.02: the preset's 0.05 diverges at this NZ) + 100
-     steps with a series point every 50; then the bench headline
-     (256x256x257, f32, D3Q7 scalars) for 50 steps.  Launch counts are
-     zeroed before each run and must equal the steps; the state must stay
-     finite; each kernel is held to its plain version on that run's state;
-  6. one JSON line describing each CUDA kernel;
-  7. the final line {"ok": true, "device": {...}}.
+     steps of the default multi_step (phi_hx route) with a series point
+     every 50, then 50 steps with phi_hx off (hartley_x form); then the
+     bench headline (256x256x257, f32, D3Q7 scalars) the same way for
+     50 + 50 steps, and 40 steps of it with fft_method "fft" (the
+     plain-RHS form's path).  Launch counts are zeroed before each run and
+     must equal the steps, per form; the state must stay finite; every
+     form, stream_bc and the three solves are timed by CUDA events and
+     each kernel is held to its plain version on that run's state;
+  6. the CLI with the perturbed first step, 10 steps on the card: rc 0,
+     finite series;
+  7. one JSON line describing each CUDA kernel (each collide form);
+  8. the final line {"ok": true, "device": {...}}.
 Details go to smoke_out/chip_smoke.json.
 """
 import json
@@ -63,8 +72,19 @@ CASES = {
     "J": ("reference", dict(nx=10, ny=8, nz=9)),
     "ref50": ("reference", dict()),
 }
-REPLACES = "ekpnp/pallas/fused_step.py:1321"  # pl.pallas_call of build_fused_step
 SOURCE = "ekpnp_torch/csrc/fused_step.cu"
+# the TPU kernel each launch replaces: the pl.pallas_call of
+# build_fused_step, and for the x-Hartley forms the lines of the form
+REPLACES = {
+    "collide_kernel": "ekpnp/pallas/fused_step.py:1321",
+    "collide_rows_kernel.hartley_x": "ekpnp/pallas/fused_step.py:984",
+    "collide_rows_kernel.phi_hx": "ekpnp/pallas/fused_step.py:680",
+    "stream_bc_kernel": "ekpnp/pallas/fused_step.py:1321",
+}
+# the collide forms: (kernel, keyword arguments of fused_step.collide)
+FORMS = (("collide_kernel", dict(hartley_x=False)),
+         ("collide_rows_kernel.hartley_x", dict(hartley_x=True)),
+         ("collide_rows_kernel.phi_hx", dict(phi_hx=True)))
 # device-memory rate by card name (NVIDIA data sheets)
 HBM_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
           ("H100", 3.35e12))
@@ -158,6 +178,22 @@ def phase_build():
             "ptxas": info["log"]}
 
 
+def _form_inputs(cfg, ins, kw):
+    """The collide inputs of a form: phi_hx takes psi_hx in place of phi."""
+    from ekpnp_torch.ops.poisson import psi_hx_from_phi
+
+    if kw.get("phi_hx"):
+        return (*ins[:4], psi_hx_from_phi(cfg, ins[4]))
+    return ins
+
+
+def _forms(cfg):
+    """The collide forms a config can take: plain RHS always, the x-Hartley
+    forms where EK is on and the solve is the Hartley one."""
+    hx = cfg.physics.enable_ek and cfg.run.fft_method != "fft"
+    return FORMS if hx else FORMS[:1]
+
+
 def phase_kernels_vs_plain():
     import torch
 
@@ -173,33 +209,40 @@ def phase_kernels_vs_plain():
             errs = {}
             for _ in range(3):
                 ins = (st.f, st.h, st.hn, st.g, st.phi)
-                kp = fs.collide(cfg, *ins)
-                rp = fs.collide_reference(cfg, *ins)
-                ko = fs.stream_bc(cfg, *kp[:4])
-                ro = fs.stream_bc_reference(cfg, *kp[:4])
-                whole = fs.fused_step_reference(cfg, *ins)
-                for lab, ks, rs in (("collide", kp, rp), ("stream_bc", ko, ro),
-                                    ("step", (*ko, kp[4]), whole)):
-                    for fld, a, b in zip(("f", "h", "hn", "g", "rhs"), ks, rs):
-                        if b is None:
-                            assert a is None, (case, lab, fld)
-                            continue
-                        e = rel_err(a, b)
-                        errs[(lab, fld)] = max(errs.get((lab, fld), 0.0), e)
-                phi = poisson_phi_from_rhs(cfg, kp[4]) if kp[4] is not None else None
-                st = st._replace(f=ko[0], h=ko[1], hn=ko[2], g=ko[3], phi=phi)
+                for kname, kw in _forms(cfg):
+                    x = _form_inputs(cfg, ins, kw)
+                    kp = fs.collide(cfg, *x, **kw)
+                    rp = fs.collide_reference(cfg, *x, **kw)
+                    checks = [(kname, kp, rp)]
+                    if kname == "collide_kernel":
+                        ko = fs.stream_bc(cfg, *kp[:4])
+                        ro = fs.stream_bc_reference(cfg, *kp[:4])
+                        whole = fs.fused_step_reference(cfg, *x, **kw)
+                        checks += [("stream_bc_kernel", ko, ro),
+                                   ("step", (*ko, kp[4]), whole)]
+                        plain, plain_out = kp, ko
+                    for lab, ks, rs in checks:
+                        for fld, a, b in zip(("f", "h", "hn", "g", "rhs"), ks, rs):
+                            if b is None:
+                                assert a is None, (case, lab, fld)
+                                continue
+                            e = rel_err(a, b)
+                            errs[(lab, fld)] = max(errs.get((lab, fld), 0.0), e)
+                phi = (poisson_phi_from_rhs(cfg, plain[4])
+                       if plain[4] is not None else None)
+                st = st._replace(f=plain_out[0], h=plain_out[1],
+                                 hn=plain_out[2], g=plain_out[3], phi=phi)
             torch.cuda.synchronize()
-            step_errs = {f: e for (lab, f), e in errs.items() if lab == "step"}
             log(f"  case {case:8s} {dtype}: " + " ".join(
-                f"{f} {e:.2e}" for f, e in step_errs.items()))
+                f"{lab.split('.')[-1].replace('_kernel', '')}:{f} {e:.1e}"
+                for (lab, f), e in errs.items() if lab != "stream_bc_kernel"))
             for (lab, fld), e in errs.items():
                 if e > TOL[dtype]:
                     raise SystemExit(f"chip_smoke: {case} {dtype} {lab} {fld} "
                                      f"rel err {e:.3e} > {TOL[dtype]}")
                 if lab != "step":
-                    key = (dtype, lab + "_kernel")
-                    worst[key] = max(worst.get(key, 0.0), e)
-    log("kernels vs plain: all cases within 1e-12 (f64) / 1e-5 (f32)")
+                    worst[(dtype, lab)] = max(worst.get((dtype, lab), 0.0), e)
+    log("kernels vs plain (every form): all cases within 1e-12 (f64) / 1e-5 (f32)")
     return worst
 
 
@@ -215,11 +258,15 @@ def phase_golden():
     from ekpnp_torch.ops.poisson import efield
 
     cfg = ekpnp_torch.preset("reference", dtype="float64")
-    before = fs.launches["collide_kernel"]
     state, _ = initialize(cfg, device="cuda")
+    fs.reset_launches()
     state = multi_step(cfg, state, 60)
-    if fs.launches["collide_kernel"] - before != 60:
-        raise SystemExit("chip_smoke: golden run did not go through the kernels")
+    counts = dict(fs.launches)
+    want = {k: 0 for k in fs.KERNELS}
+    want.update({"collide_rows_kernel.phi_hx": 60, "stream_bc_kernel": 60})
+    if counts != want:
+        raise SystemExit(f"chip_smoke: golden run launches {counts}, want "
+                         f"{want}: it did not take the x-Hartley route")
     macro, _ = compute_macro(cfg, state)
     E = efield(cfg, state.phi)
     got = {
@@ -233,15 +280,15 @@ def phase_golden():
         "phi_max": torch.max(state.phi),
         "uz_abs_sum": torch.sum(torch.abs(macro.u[2])),
     }
-    worst = 0.0
-    for k, want in GOLDEN.items():
-        e = abs(float(got[k]) / want - 1.0)
-        worst = max(worst, e)
+    devs = {k: abs(float(got[k]) / want - 1.0) for k, want in GOLDEN.items()}
+    for k, e in devs.items():
         if e > 1e-9:
             raise SystemExit(f"chip_smoke: golden {k} = {float(got[k])!r}, "
-                             f"want {want!r} (rel {e:.3e})")
-    log(f"golden (reference, f64, 60 kernel steps): max rel dev {worst:.2e}")
-    return worst
+                             f"want {GOLDEN[k]!r} (rel {e:.3e})")
+    worst = max(devs.values())
+    log(f"golden (reference, f64, 60 steps, phi_hx route): max rel dev "
+        f"{worst:.2e} ({max(devs, key=devs.get)})")
+    return devs
 
 
 def _events_ms(fn, reps):
@@ -258,24 +305,81 @@ def _events_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def _ops_collide(cfg):
-    """Arithmetic of collide_kernel per node, counted from its source:
-    per fluid direction ~4 (moments) + ~12 (feq, TRT) + ~20 (Guo); per
-    scalar direction ~1 (moment) + ~12; ~60 for E, force and velocity."""
+def _ops_collide(cfg, kname):
+    """Arithmetic of one collide launch, counted from its source: per node
+    and fluid direction ~4 (moments) + ~12 (feq, TRT) + ~20 (Guo); per
+    scalar direction ~1 (moment) + ~12; ~60 for E, force and velocity.
+    The x-Hartley forms add their row products, 2 NX operations per value:
+    every interior RHS value, and for phi_hx every phi value the row-block
+    launch decodes (3 (rb + 2) rows of NX per tile of rb rows and z)."""
+    from ekpnp_torch.kernels.fused_step import row_block_rows
+
+    g = cfg.grid
     p = cfg.physics
     nsc = ((2 if p.two_species else 1) if p.enable_ek else 0) + int(p.enable_thermal)
-    return cfg.grid.num_nodes * (36 * cfg.lattice.Q + 13 * nsc * cfg.scalar_lat.Q + 60)
+    ops = g.num_nodes * (36 * cfg.lattice.Q + 13 * nsc * cfg.scalar_lat.Q + 60)
+    if kname != "collide_kernel":
+        ops += 2 * g.nx * (g.nz - 2) * g.ny * g.nx
+    if kname == "collide_rows_kernel.phi_hx":
+        item = 8 if cfg.run.dtype == "float64" else 4
+        rb = row_block_rows(g.nx, item, True)
+        decoded = g.nz * -(-g.ny // rb) * 3 * (rb + 2) * g.nx
+        ops += 2 * g.nx * decoded
+    return ops
 
 
-def drive(label, cfg, make, steps, every, bw):
-    """One main-path run through the port's API, counts zeroed just before."""
+def _chunks(cfg, state, steps, every, run, label):
+    """`run(cfg, state, n)` in chunks of `every` steps, a series point after
+    each; returns (state, seconds per step of each chunk)."""
     import torch
 
-    from ekpnp_torch.diagnostics import check_finite, series_point
-    from ekpnp_torch.kernels import fused_step as fs
-    from ekpnp_torch.kernels.step import multi_step
-    from ekpnp_torch.ops.poisson import poisson_phi_from_rhs
+    from ekpnp_torch.diagnostics import series_point
 
+    chunks, done = [], 0
+    while done < steps:
+        n = min(every, steps - done)
+        t0 = time.perf_counter()
+        state = run(cfg, state, n)
+        torch.cuda.synchronize()
+        chunks.append((time.perf_counter() - t0) / n)
+        done += n
+        um, umag, cur, mean_t, fin = (x.item() for x in series_point(cfg, state))
+        log(f"  {label} step {done}: umax {um:.6g} |u|max {umag:.6g} "
+            f"current {cur:.6g} <T> {mean_t:.6g} finite {fin}")
+    return state, chunks
+
+
+def _expect_launches(label, counts, form, steps):
+    """The run launched `form` and stream_bc_kernel once per step and no
+    other collide form."""
+    from ekpnp_torch.kernels.fused_step import KERNELS
+
+    want = {k: 0 for k in KERNELS}
+    want.update({form: steps, "stream_bc_kernel": steps})
+    if counts != want:
+        raise SystemExit(f"chip_smoke: {label}: launches {counts}, want {want}:"
+                         f" the path bypassed its kernel")
+
+
+def drive(label, cfg, make, steps, every, other_steps, bw):
+    """One cell through the port's API: the default multi_step (the phi_hx
+    route) for `steps` steps, then one chunk of `other_steps` with the
+    other phi_hx setting (multi_step_rhs: hartley_x form, real phi between
+    steps); counts zeroed just before each run and read just after.  Then
+    every collide form, stream_bc and the solves are timed on the final
+    state and held to their plain versions."""
+    import torch
+
+    from ekpnp_torch.diagnostics import check_finite
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.kernels.step import (multi_step, multi_step_rhs,
+                                          phi_hx_capable)
+    from ekpnp_torch.ops.poisson import (poisson_phi_from_rhs,
+                                         poisson_psi_hx_from_rhs)
+    from ekpnp_torch.parallel.fft import hartley_x_local
+
+    if not phi_hx_capable(cfg):
+        raise SystemExit(f"chip_smoke: {label}: not a phi_hx cell")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fs.reset_launches()
@@ -283,84 +387,126 @@ def drive(label, cfg, make, steps, every, bw):
     state = make()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    chunks, done = [], 0
-    while done < steps:
-        n = min(every, steps - done)
-        t0 = time.perf_counter()
-        state = multi_step(cfg, state, n)
-        torch.cuda.synchronize()
-        chunks.append((time.perf_counter() - t0) / n)
-        done += n
-        um, umag, cur, mean_t, fin = (x.item() for x in series_point(cfg, state))
-        log(f"  {label} step {done}: umax {um:.6g} |u|max {umag:.6g} "
-            f"current {cur:.6g} <T> {mean_t:.6g} finite {fin}")
+    state, chunks = _chunks(cfg, state, steps, every, multi_step, label)
     counts = dict(fs.launches)
+    _expect_launches(label, counts, "collide_rows_kernel.phi_hx", steps)
+    fs.reset_launches()
+    state, other = _chunks(cfg, state, other_steps, other_steps,
+                           multi_step_rhs, label + " phi_hx off")
+    counts_other = dict(fs.launches)
+    _expect_launches(label + " phi_hx off", counts_other,
+                     "collide_rows_kernel.hartley_x", other_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = check_finite(state)
     if not finite:
         raise SystemExit(f"chip_smoke: {label}: non-finite state")
-    if any(counts[k] != steps for k in fs.KERNELS):
-        raise SystemExit(f"chip_smoke: {label}: launches {counts} != {steps} "
-                         f"steps each: the main path bypassed a kernel")
     step_ms = chunks[-1] * 1e3
+    step_ms_off = other[-1] * 1e3
     mlups = cfg.grid.num_nodes / (chunks[-1] * 1e6)
 
-    # per-launch times (CUDA events) and the plain versions, on this state
+    # per-launch times (CUDA events), plain versions and the library x stage
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
     ins = (state.f, state.h, state.hn, state.g, state.phi)
-    post = fs.collide(cfg, *ins)
-    out = fs.stream_bc(cfg, *post[:4])
-    ms = {"collide_kernel": _events_ms(lambda: fs.collide(cfg, *ins, post=post[:4]), 10),
-          "stream_bc_kernel": _events_ms(lambda: fs.stream_bc(cfg, *post[:4], out=out), 10)}
-    solve_ms = (_events_ms(lambda: poisson_phi_from_rhs(cfg, post[4]), 10)
-                if post[4] is not None else 0.0)
-    del out
-    errs, abs_errs, plain_ms = {}, {}, {}
-    ref = fs.collide_reference(cfg, *ins)
-    errs["collide_kernel"] = max(rel_err(a, b) for a, b in zip(post, ref) if b is not None)
-    abs_errs["collide_kernel"] = max(float((a - b).abs().max())
-                                     for a, b in zip(post[:4], ref[:4]) if b is not None)
-    rhs_abs = float((post[4] - ref[4]).abs().max()) if ref[4] is not None else 0.0
-    del ref
-    plain_ms["collide_kernel"] = _events_ms(lambda: fs.collide_reference(cfg, *ins), 2)
-    kout = fs.stream_bc(cfg, *post[:4])
-    ref = fs.stream_bc_reference(cfg, *post[:4])
-    errs["stream_bc_kernel"] = max(rel_err(a, b) for a, b in zip(kout, ref) if b is not None)
-    abs_errs["stream_bc_kernel"] = max(float((a - b).abs().max())
-                                       for a, b in zip(kout, ref) if b is not None)
-    del ref, kout
-    plain_ms["stream_bc_kernel"] = _events_ms(lambda: fs.stream_bc_reference(cfg, *post[:4]), 2)
+    H_bytes = cfg.grid.nx ** 2 * state.f.element_size()
+    ms, plain_ms, lib_ms, errs, abs_errs, bytes_, ops = {}, {}, {}, {}, {}, {}, {}
+    solve_ms = {}
+    for kname, kw in FORMS:
+        x = _form_inputs(cfg, ins, kw)
+        post = fs.collide(cfg, *x, **kw)
+        ms[kname] = _events_ms(lambda: fs.collide(cfg, *x, post=post[:4], **kw), 10)
+        ref = fs.collide_reference(cfg, *x, **kw)
+        errs[kname] = max(rel_err(a, b) for a, b in zip(post, ref) if b is not None)
+        abs_errs[kname] = max(float((a - b).abs().max())
+                              for a, b in zip(post, ref) if b is not None)
+        del ref
+        plain_ms[kname] = _events_ms(lambda: fs.collide_reference(cfg, *x, **kw), 2)
+        bytes_[kname] = nb(x) + nb(post) + (H_bytes if kname != "collide_kernel" else 0)
+        ops[kname] = _ops_collide(cfg, kname)
+        rhs = post[4]
+        if kname == "collide_kernel":
+            solve_ms["plain"] = _events_ms(lambda: poisson_phi_from_rhs(cfg, rhs), 10)
+            lib_ms[kname] = None
+            plain_rhs = rhs
+        elif kname == "collide_rows_kernel.hartley_x":
+            solve_ms["rhs_hx"] = _events_ms(
+                lambda: poisson_phi_from_rhs(cfg, rhs, rhs_hx=True), 10)
+            solve_ms["psi_hx"] = _events_ms(
+                lambda: poisson_psi_hx_from_rhs(cfg, rhs), 10)
+            lib_ms[kname] = _events_ms(lambda: hartley_x_local(plain_rhs), 10)
+        else:
+            psi = x[4]
+            lib_ms[kname] = _events_ms(lambda: hartley_x_local(psi), 10)
+        if kname == "collide_kernel":
+            kout = fs.stream_bc(cfg, *post[:4])
+            ms["stream_bc_kernel"] = _events_ms(
+                lambda: fs.stream_bc(cfg, *post[:4], out=kout), 10)
+            ref = fs.stream_bc_reference(cfg, *post[:4])
+            errs["stream_bc_kernel"] = max(rel_err(a, b) for a, b in zip(kout, ref)
+                                           if b is not None)
+            abs_errs["stream_bc_kernel"] = max(float((a - b).abs().max())
+                                               for a, b in zip(kout, ref) if b is not None)
+            del ref, kout
+            plain_ms["stream_bc_kernel"] = _events_ms(
+                lambda: fs.stream_bc_reference(cfg, *post[:4]), 2)
+            bytes_["stream_bc_kernel"] = 2 * nb(post[:4])
+            ops["stream_bc_kernel"] = 0
+            lib_ms["stream_bc_kernel"] = None
+        del post, x
+        torch.cuda.empty_cache()
     for k, e in errs.items():
         if e > TOL[cfg.run.dtype]:
             raise SystemExit(f"chip_smoke: {label}: {k} vs plain rel err {e:.3e}")
 
-    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
-    bytes_ = {"collide_kernel": nb(ins) + nb(post),
-              "stream_bc_kernel": 2 * nb(post[:4])}
-    ops = {"collide_kernel": _ops_collide(cfg), "stream_bc_kernel": 0}
     bound = {}
-    for k in fs.KERNELS:
+    for k in ms:
         tb, to = bytes_[k] / bw * 1e3, ops[k] / PEAK[cfg.run.dtype] * 1e3
         bound[k] = (max(tb, to), "bytes" if tb >= to else "operations")
     res = dict(label=label, grid=list(cfg.grid.shape), dtype=cfg.run.dtype,
                scalars=cfg.scalar_lat.name, steps=steps, init_s=init_s,
                step_ms=step_ms, chunk_ms=[c * 1e3 for c in chunks], mlups=mlups,
-               launches=counts, kernel_ms=ms, solve_ms=solve_ms,
+               step_ms_phi_hx_off=step_ms_off, other_steps=other_steps,
+               launches=counts, launches_phi_hx_off=counts_other,
+               kernel_ms=ms, solve_ms=solve_ms, library_ms=lib_ms,
                plain_ms=plain_ms, bound_ms={k: v[0] for k, v in bound.items()},
                bound_by={k: v[1] for k, v in bound.items()},
                bytes=bytes_, ops=ops, rel_err=errs, abs_err=abs_errs,
-               rhs_abs_err=rhs_abs, peak_gb=peak_gb, finite=finite)
-    log(f"{label}: {mlups:.1f} MLUPS, {step_ms:.3f} ms/step, init {init_s:.2f} s, "
-        f"collide {ms['collide_kernel']:.3f} ms (bound {bound['collide_kernel'][0]:.3f}), "
-        f"stream_bc {ms['stream_bc_kernel']:.3f} ms (bound "
-        f"{bound['stream_bc_kernel'][0]:.3f}), solve {solve_ms:.3f} ms, "
-        f"launches {counts}, finite {finite}, peak {peak_gb:.2f} GB")
-    log(f"  plain: collide {plain_ms['collide_kernel']:.2f} ms, stream_bc "
-        f"{plain_ms['stream_bc_kernel']:.2f} ms; kernel vs plain rel err "
-        f"{errs['collide_kernel']:.2e} / {errs['stream_bc_kernel']:.2e}")
-    return res
+               peak_gb=peak_gb, finite=finite)
+    log(f"{label}: {mlups:.1f} MLUPS, {step_ms:.3f} ms/step (phi_hx route), "
+        f"{step_ms_off:.3f} ms/step (phi_hx off: hartley_x form), init "
+        f"{init_s:.2f} s, peak {peak_gb:.2f} GB")
+    for k in ms:
+        lib = f", library {lib_ms[k]:.3f}" if lib_ms.get(k) is not None else ""
+        log(f"  {k}: {ms[k]:.3f} ms (bound {bound[k][0]:.3f}, {bound[k][1]}), "
+            f"plain {plain_ms[k]:.2f} ms{lib}, rel err {errs[k]:.2e}")
+    log("  solve: " + ", ".join(f"{k} {v:.3f} ms" for k, v in solve_ms.items()))
+    return res, state
+
+
+def drive_plain_rhs(label, cfg, state, steps, every):
+    """The plain-RHS form's path: fft_method "fft" (the solve by torch.fft
+    takes no x-Hartley RHS), default multi_step, counts zeroed just before;
+    ms/step of the last chunk (the first one pays cuFFT's set-up)."""
+    import torch
+
+    from ekpnp_torch.diagnostics import check_finite
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.kernels.step import multi_step
+
+    fs.reset_launches()
+    state, chunks = _chunks(cfg, state, steps, every, multi_step, label)
+    counts = dict(fs.launches)
+    _expect_launches(label, counts, "collide_kernel", steps)
+    if not check_finite(state):
+        raise SystemExit(f"chip_smoke: {label}: non-finite state")
+    torch.cuda.empty_cache()
+    log(f"{label}: {chunks[-1] * 1e3:.3f} ms/step, launches {counts}")
+    return dict(label=label, steps=steps, step_ms=chunks[-1] * 1e3,
+                launches=counts)
 
 
 def phase_main_path(bw):
+    import dataclasses
+
     import torch
 
     import ekpnp_torch
@@ -380,7 +526,8 @@ def phase_main_path(bw):
             f"{float(res):.3e}")
         return state
 
-    full = drive("ek-pnp-thermal", cfg, cold_start, 100, 50, bw)
+    full, state = drive("ek-pnp-thermal", cfg, cold_start, 100, 50, 50, bw)
+    del state
     torch.cuda.empty_cache()
 
     # bench.py's headline: reference physics at 256x256x257, f32, D3Q7 scalars,
@@ -400,9 +547,39 @@ def phase_main_path(bw):
         return state_from_macro(hcfg, macro, torch.zeros(shape, **kw),
                                 torch.zeros((3,) + shape, **kw), 0.0)
 
-    head = drive("headline-d3q7", hcfg, headline_state, 50, 50, bw)
+    head, state = drive("headline-d3q7", hcfg, headline_state, 50, 50, 50, bw)
+    fcfg = dataclasses.replace(hcfg, run=dataclasses.replace(hcfg.run,
+                                                             fft_method="fft"))
+    fft = drive_plain_rhs("headline-d3q7 fft", fcfg, state, 40, 20)
+    del state
     torch.cuda.empty_cache()
-    return full, head
+    return full, head, fft
+
+
+def phase_cli():
+    """The CLI on the card with the perturbed first step (plain step on the
+    card's tensors, then the kernel path): exit 0, finite series."""
+    import math
+
+    out = os.path.join("smoke_out", "cli_perturb")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ekpnp_torch", "run", "reference", "--steps",
+         "10", "--set", "perturb_first_step=true", "--outdir", out],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0 or "Iteration: 10" not in proc.stdout:
+        raise SystemExit(f"chip_smoke: CLI perturbed run rc {proc.returncode}:"
+                         f"\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    with open(os.path.join(out, "series.csv")) as fh:
+        last = fh.read().splitlines()[-1].split(",")
+    if not all(math.isfinite(float(v)) for v in last):
+        raise SystemExit(f"chip_smoke: CLI perturbed run: non-finite {last}")
+    log(f"CLI `run reference --steps 10 --set perturb_first_step=true`: rc 0 "
+        f"in {secs:.1f} s, last series row {last}")
+    return dict(seconds=secs, last_row=last)
 
 
 def main():
@@ -419,25 +596,29 @@ def main():
     build = phase_build()
     worst = phase_kernels_vs_plain()
     golden = phase_golden()
-    full, head = phase_main_path(bw)
+    full, head, fft = phase_main_path(bw)
+    cli = phase_cli()
 
+    runs = (full["launches"], full["launches_phi_hx_off"], head["launches"],
+            head["launches_phi_hx_off"], fft["launches"])
     kernels = []
     for k in KERNELS:
         kernels.append({
-            "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": full["launches"][k] + head["launches"][k],
+            "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
+            "launches": sum(c[k] for c in runs),
             "max_abs_err": max(full["abs_err"][k], head["abs_err"][k]),
             "ms": full["kernel_ms"][k], "plain_ms": full["plain_ms"][k],
             "bound_ms": full["bound_ms"][k], "bound_by": full["bound_by"][k],
-            "library_ms": None,
+            "library_ms": full["library_ms"][k],
             "max_err_f64": worst[("float64", k)],
             "max_err_f32": worst[("float32", k)],
             "ms_d3q7": head["kernel_ms"][k], "plain_ms_d3q7": head["plain_ms"][k],
             "bound_ms_d3q7": head["bound_ms"][k],
+            "library_ms_d3q7": head["library_ms"][k],
         })
-    report = dict(card=card, hbm_bw=bw, build=build, golden_max_rel=golden,
+    report = dict(card=card, hbm_bw=bw, build=build, golden_rel_dev=golden,
                   worst_rel=[[*k, v] for k, v in worst.items()],
-                  runs=[full, head], kernels=kernels,
+                  runs=[full, head, fft], cli=cli, kernels=kernels,
                   seconds=time.perf_counter() - t_start)
     os.makedirs("smoke_out", exist_ok=True)
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as fh:

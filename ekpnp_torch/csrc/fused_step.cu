@@ -27,6 +27,19 @@
 //                     anti-bounce-back.  zerograd-top: every ion read of
 //                     post plane NZ-1 takes plane NZ-2, and the top plane
 //                     is post[d, NZ-2, y-ey, x-ex] for every d.
+//   collide_rows_kernel  the TPU kernel's x-Hartley forms, the same
+//                     per-node collide launched one block per (z, tile of
+//                     up to 8 y rows):
+//                     <FORM 1> hartley_x (fused_step.py:247-259, :984-990):
+//                     the RHS rows are collected in shared memory and
+//                     written as rows @ H, H[j, k] = cas(2 pi j k / NX);
+//                     <FORM 2> phi_hx (fused_step.py:261-268, :680-696):
+//                     the phi argument is psi_hx; the block decodes the
+//                     psi rows its E stencil reads into a shared-memory
+//                     window (psi @ H + lifting) before the collide, and
+//                     emits the RHS as FORM 1 does.  Either form is one
+//                     launch in place of collide_kernel; stream_bc_kernel
+//                     follows unchanged, so a step stays two launches.
 //
 // Bound: device-memory bytes.  The pair moves 1736 B/node per step with
 // every field on D3Q27 in f32 (collide: populations read + post written,
@@ -34,10 +47,17 @@
 // with D3Q7 scalars -- twice the population traffic of one fused pass.
 // Fusing the two launches into one pass is the first item of the perf
 // queue (ROADMAP.md).  Constants are folded in double on the host and cast
-// to T, as the TPU kernel's cst() does.
+// to T, as the TPU kernel's cst() does.  The x-Hartley forms add 2 NX
+// operations per RHS value and per decoded phi value (30 rows decoded per
+// 8-row tile); each block reads H (NX^2 values) from L2 once per product.
+// They are built for being right first: no tensor cores, no register
+// tiling.  On an H100 SXM (700 W) the row products run at ~6-10 TFLOP/s in
+// f32, bound by one broadcast shared-memory read per multiply-add, so the
+// phi_hx decode costs more than the solve's x stages it removes (PERF.md).
 //
 // Plain C interface for ctypes; every entry point returns the
-// cudaGetLastError() of its launch (or -1 for an unsupported lattice pair).
+// cudaGetLastError() of its launch (or -1 for an unsupported lattice pair,
+// -2 for a row-block height whose shared memory does not fit).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -60,6 +80,7 @@ struct HostConsts {
   double f_tscale, f_ics2, f_op, f_om, f_splus, f_sminus;
   double s_tscale, s_ics2;
   double h_op, h_om, K, hn_op, hn_om, Kn, g_op, g_om, joule;
+  double volt, volt2;           // plate potentials (phi_hx lifting profile)
   double wf[27], ws[27], mw[27], gjw[27], fwics2[27];
   double wadd[3][2][27];        // [h, hn, g][z=0, z=NZ-1][d] added at the wall
 };
@@ -71,6 +92,7 @@ struct Params {
   T inv_cfl, half_dt, dt, kappa, rhs_scale, ext_field, exf, buoy, hdx, hdy, hdz;
   T f_tscale, f_ics2, f_op, f_om, f_splus, f_sminus;
   T s_tscale, s_ics2, h_op, h_om, K, hn_op, hn_om, Kn, g_op, g_om, joule;
+  double volt, volt2;
   T wf[27], ws[27], mw[27], gjw[27], fwics2[27];
   T wadd[3][2][27];
 };
@@ -92,6 +114,7 @@ Params<T> make_params(const HostInts& I, const HostConsts& C) {
   P.h_op = T(C.h_op); P.h_om = T(C.h_om); P.K = T(C.K);
   P.hn_op = T(C.hn_op); P.hn_om = T(C.hn_om); P.Kn = T(C.Kn);
   P.g_op = T(C.g_op); P.g_om = T(C.g_om); P.joule = T(C.joule);
+  P.volt = C.volt; P.volt2 = C.volt2;
   for (int d = 0; d < 27; ++d) {
     P.wf[d] = T(C.wf[d]); P.ws[d] = T(C.ws[d]);
     P.mw[d] = T(C.mw[d]); P.gjw[d] = T(C.gjw[d]);
@@ -152,11 +175,35 @@ struct NodeMacro {
   T Ex, Ey, Ez;          // E = -grad(phi)
 };
 
-template <typename T, int QF, int QS>
+// phi read from device memory (plain and hartley_x forms)
+template <typename T>
+struct PhiGlobal {
+  const T* __restrict__ phi;
+  int64_t plane;
+  int nx;
+  __device__ __forceinline__ T operator()(int z, int y, int x) const {
+    return ld(phi, z * plane + (int64_t)y * nx + x);
+  }
+};
+
+// phi read from the block's decoded shared-memory window (phi_hx form):
+// planes w0..w0+2, window row r holding phi row (y0 - 1 + r) mod NY.
+template <typename T>
+struct PhiWindow {
+  const T* win;
+  int w0, y0, ny, nx, wrows;
+  __device__ __forceinline__ T operator()(int z, int y, int x) const {
+    int r = y - y0 + 1;
+    if (r < 0) r += ny; else if (r >= wrows) r -= ny;
+    return win[((z - w0) * wrows + r) * nx + x];
+  }
+};
+
+template <typename T, int QF, int QS, typename Phi>
 __device__ __forceinline__ void node_macro(
     const Params<T>& P, const T* __restrict__ f, const T* __restrict__ h,
     const T* __restrict__ hn, const T* __restrict__ g,
-    const T* __restrict__ phi, int z, int y, int x, int64_t N,
+    const Phi& phi, int z, int y, int x, int64_t N,
     NodeMacro<T>& o) {
   const int64_t plane = (int64_t)P.ny * P.nx;
   const int64_t idx = z * plane + (int64_t)y * P.nx + x;
@@ -177,12 +224,9 @@ __device__ __forceinline__ void node_macro(
     const int xm = x == 0 ? P.nx - 1 : x - 1, xp = x == P.nx - 1 ? 0 : x + 1;
     const int ym = y == 0 ? P.ny - 1 : y - 1, yp = y == P.ny - 1 ? 0 : y + 1;
     const int zc = z == 0 ? 1 : (z == P.nz - 1 ? P.nz - 2 : z);
-    const int64_t row = z * plane + (int64_t)y * P.nx;
-    o.Ex = (ld(phi, row + xm) - ld(phi, row + xp)) * P.hdx;
-    o.Ey = (ld(phi, z * plane + (int64_t)ym * P.nx + x)
-            - ld(phi, z * plane + (int64_t)yp * P.nx + x)) * P.hdy;
-    o.Ez = (ld(phi, (zc - 1) * plane + (int64_t)y * P.nx + x)
-            - ld(phi, (zc + 1) * plane + (int64_t)y * P.nx + x)) * P.hdz;
+    o.Ex = (phi(z, y, xm) - phi(z, y, xp)) * P.hdx;
+    o.Ey = (phi(z, ym, x) - phi(z, yp, x)) * P.hdy;
+    o.Ez = (phi(zc - 1, y, x) - phi(zc + 1, y, x)) * P.hdz;
     o.c = moment0<QS>(h, N, idx);
     if (P.nspec == 2) o.cn = moment0<QS>(hn, N, idx);
     const T q = P.kappa * (o.c - o.cn);
@@ -277,20 +321,15 @@ __device__ __forceinline__ void trt_field(
   }
 }
 
-template <typename T, int QF, int QS>
-__global__ void __launch_bounds__(128) collide_kernel(
-    const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
-    const T* __restrict__ hn, const T* __restrict__ g,
-    const T* __restrict__ phi, T* __restrict__ pf, T* __restrict__ ph,
-    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs) {
-  const int64_t plane = (int64_t)P.ny * P.nx;
-  const int64_t N = plane * P.nz;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= N) return;
-  const int x = (int)(idx % P.nx);
-  const int y = (int)((idx / P.nx) % P.ny);
-  const int z = (int)(idx / plane);
-
+// Collide one node: writes its post-collision populations (the reflected
+// pre-collision fluid at the plates) and returns its plain Poisson RHS
+// value -kappa (c+ - c-) / eps (0 without EK).
+template <typename T, int QF, int QS, typename Phi>
+__device__ __forceinline__ T collide_node(
+    const Params<T>& P, const T* __restrict__ f, const T* __restrict__ h,
+    const T* __restrict__ hn, const T* __restrict__ g, const Phi& phi,
+    T* __restrict__ pf, T* __restrict__ ph, T* __restrict__ phn,
+    T* __restrict__ pg, int z, int y, int x, int64_t N, int64_t idx) {
   NodeMacro<T> m;
   node_macro<T, QF, QS>(P, f, h, hn, g, phi, z, y, x, N, m);
   T ux, uy, uz;
@@ -322,6 +361,7 @@ __global__ void __launch_bounds__(128) collide_kernel(
                                m.fx, m.fy, m.fz, T(0));
   }
 
+  T rhs_v = T(0);
   if (P.ek) {
     trt_field<QS, false, false>(h, ph, N, idx, P.ws, m.c, ux + P.K * m.Ex,
                                 uy + P.K * m.Ey, uz + P.K * m.Ez, P.s_tscale,
@@ -332,7 +372,7 @@ __global__ void __launch_bounds__(128) collide_kernel(
                                   ux + P.Kn * m.Ex, uy + P.Kn * m.Ey,
                                   uz + P.Kn * m.Ez, P.s_tscale, P.s_ics2,
                                   P.hn_op, P.hn_om, P, T(0), T(0), T(0), T(0));
-    if (z >= 1 && z <= P.nz - 2) rhs[idx - plane] = -(P.rhs_scale * (m.c - m.cn));
+    rhs_v = -(P.rhs_scale * (m.c - m.cn));
   }
   if (P.thermal) {
     if (P.joule_on) {
@@ -346,6 +386,148 @@ __global__ void __launch_bounds__(128) collide_kernel(
                                   P.s_tscale, P.s_ics2, P.g_op, P.g_om, P,
                                   T(0), T(0), T(0), T(0));
     }
+  }
+  return rhs_v;
+}
+
+// Plain-RHS form: one thread per node, flat 128-thread blocks.
+template <typename T, int QF, int QS>
+__global__ void __launch_bounds__(128) collide_kernel(
+    const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
+    const T* __restrict__ hn, const T* __restrict__ g,
+    const T* __restrict__ phi, T* __restrict__ pf, T* __restrict__ ph,
+    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs) {
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const int64_t N = plane * P.nz;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= N) return;
+  const int x = (int)(idx % P.nx);
+  const int y = (int)((idx / P.nx) % P.ny);
+  const int z = (int)(idx / plane);
+  const PhiGlobal<T> src{phi, plane, P.nx};
+  const T r = collide_node<T, QF, QS>(P, f, h, hn, g, src, pf, ph, phn, pg,
+                                      z, y, x, N, idx);
+  if (P.ek && z >= 1 && z <= P.nz - 2) rhs[idx - plane] = r;
+}
+
+// ---------------------------------------------------------------------------
+// The x-Hartley forms: one block per (z, tile of up to kRowsMax y rows),
+// threads striding over the tile's nodes, x fastest, so the block holds
+// whole x rows and can take their product with the (NX, NX) cas matrix H.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowsMax = 8;                        // y rows per block
+constexpr int kWinRowsMax = 3 * (kRowsMax + 2);    // decoded phi rows
+constexpr size_t kSmemMax = 232448;                // 227 KB per block
+
+__device__ __forceinline__ float fmadd(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fmadd(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// store(r, k, sum_x src[r][x] H[x][k]) for rows r < nrows of the
+// shared-memory block src (row stride nx); thread t takes columns
+// k = t, t + blockDim, ...  H is symmetric, so H[x][k] is read coalesced
+// over k, once per block for all rows; src[r][x] is one shared-memory
+// read broadcast to the warp per multiply-add.  Explicit fused
+// multiply-adds: the sum is not the plain version's einsum order in any
+// case.
+template <int RMAX, typename T, typename Store>
+__device__ __forceinline__ void rows_times_h(const T* src, int nrows,
+                                             const T* __restrict__ H, int nx,
+                                             Store store) {
+  for (int k = threadIdx.x; k < nx; k += blockDim.x) {
+    T acc[RMAX];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
+    for (int x = 0; x < nx; ++x) {
+      const T hk = ld(H, (int64_t)x * nx + k);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r)
+        if (r < nrows) acc[r] = fmadd(src[r * nx + x], hk, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r)
+      if (r < nrows) store(r, k, acc[r]);
+  }
+}
+
+// Shared memory of a row-block launch, in elements of T: the RHS rows
+// (hartley_x); for phi_hx the psi staging rows (reused for the RHS rows)
+// and the decoded phi window.
+inline size_t rows_smem_elems(int form, int rb, int nx) {
+  return (size_t)(form == 2 ? 2 * 3 * (rb + 2) : rb) * nx;
+}
+
+// FORM 1 (hartley_x): phi from device memory; the RHS rows of the tile are
+// collected in shared memory and written as rows @ H.
+// FORM 2 (phi_hx, implies hartley_x): `phi` is psi_hx.  The block first
+// stages the psi rows its E stencil reads -- planes w0..w0+2 (z-1..z+1,
+// clamped to 0..2 at z = 0, where plane 1's macro is recomputed, and to
+// NZ-3..NZ-1 at the top), rows y0-1..y0+rb -- and decodes them as
+// psi @ H + lift(z), lift(z) = V + (V2 - V) z / (NZ-1) in double, as the
+// plain version's lifting profile.  Every node then reads phi from there.
+template <typename T, int QF, int QS, int FORM>
+__global__ void __launch_bounds__(128) collide_rows_kernel(
+    const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
+    const T* __restrict__ hn, const T* __restrict__ g,
+    const T* __restrict__ phi, const T* __restrict__ H,
+    T* __restrict__ pf, T* __restrict__ ph, T* __restrict__ phn,
+    T* __restrict__ pg, T* __restrict__ rhs, int rb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int nx = P.nx, ny = P.ny, nz = P.nz;
+  const int64_t plane = (int64_t)ny * nx;
+  const int64_t N = plane * nz;
+  const int z = blockIdx.y;
+  const int y0 = blockIdx.x * rb;
+  const int nrow = min(rb, ny - y0);
+  const int wrows = rb + 2;
+  const int w0 = min(max(z - 1, 0), nz - 3);
+  T* const win = sm;
+  T* const stage = FORM == 2 ? sm + 3 * wrows * nx : sm;
+
+  if constexpr (FORM == 2) {
+    for (int i = threadIdx.x; i < 3 * wrows * nx; i += blockDim.x) {
+      const int x = i % nx, pr = i / nx;
+      const int p = pr / wrows;
+      int yy = (y0 - 1 + pr % wrows) % ny;
+      if (yy < 0) yy += ny;
+      stage[i] = ld(phi, (w0 + p) * plane + (int64_t)yy * nx + x);
+    }
+    __syncthreads();
+    rows_times_h<kWinRowsMax>(stage, 3 * wrows, H, nx,
+                              [&](int r, int k, T v) {
+      const int zz = w0 + r / wrows;
+      const double lift = P.volt + ((P.volt2 - P.volt) * (double)zz)
+                                   / (double)(nz - 1);
+      win[r * nx + k] = v + T(lift);
+    });
+    __syncthreads();
+  }
+
+  for (int i = threadIdx.x; i < nrow * nx; i += blockDim.x) {
+    const int r = i / nx, x = i % nx, y = y0 + r;
+    const int64_t idx = z * plane + (int64_t)y * nx + x;
+    T v;
+    if constexpr (FORM == 2) {
+      const PhiWindow<T> src{win, w0, y0, ny, nx, wrows};
+      v = collide_node<T, QF, QS>(P, f, h, hn, g, src, pf, ph, phn, pg, z, y,
+                                  x, N, idx);
+    } else {
+      const PhiGlobal<T> src{phi, plane, nx};
+      v = collide_node<T, QF, QS>(P, f, h, hn, g, src, pf, ph, phn, pg, z, y,
+                                  x, N, idx);
+    }
+    stage[i] = v;
+  }
+  __syncthreads();
+  if (z >= 1 && z <= nz - 2) {
+    T* const out = rhs + (int64_t)(z - 1) * plane + (int64_t)y0 * nx;
+    rows_times_h<kRowsMax>(stage, nrow, H, nx,
+                           [&](int r, int k, T v) { out[r * nx + k] = v; });
   }
 }
 
@@ -423,6 +605,31 @@ int launch_collide(const HostInts& I, const HostConsts& C, const void* f,
   return (int)cudaGetLastError();
 }
 
+// Row-block launch of the x-Hartley forms, rb rows per block (the wrapper
+// picks rb, kernels/fused_step.py row_block_rows); -2 where rb is out of
+// range or its shared memory does not fit.
+template <typename T, int QF, int QS, int FORM>
+int launch_collide_rows(int rb, const HostInts& I, const HostConsts& C,
+                        const void* f, const void* h, const void* hn,
+                        const void* g, const void* phi, const void* H,
+                        void* pf, void* ph, void* phn, void* pg, void* rhs,
+                        cudaStream_t s) {
+  const size_t smem = rows_smem_elems(FORM, rb, I.nx) * sizeof(T);
+  if (rb < 1 || rb > kRowsMax || smem > kSmemMax) return -2;
+  auto kern = collide_rows_kernel<T, QF, QS, FORM>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)((I.ny + rb - 1) / rb), (unsigned)I.nz);
+  kern<<<grid, kThreads, smem, s>>>(
+      make_params<T>(I, C), (const T*)f, (const T*)h, (const T*)hn,
+      (const T*)g, (const T*)phi, (const T*)H, (T*)pf, (T*)ph, (T*)phn,
+      (T*)pg, (T*)rhs, rb);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int QF, int QS>
 int launch_stream_bc(const HostInts& I, const HostConsts& C, const void* pf,
                      const void* ph, const void* phn, const void* pg,
@@ -446,6 +653,26 @@ int collide_any(const HostInts& I, const HostConsts& C, const void* f,
   if (I.qf == QF_ && I.qs == QS_)                                          \
     return launch_collide<T, QF_, QS_>(I, C, f, h, hn, g, phi, pf, ph, phn, \
                                        pg, rhs, s);
+  EKPNP_LATTICE_PAIRS(EKPNP_CASE)
+#undef EKPNP_CASE
+  return -1;
+}
+
+template <typename T>
+int collide_rows_any(int form, int rb, const HostInts& I, const HostConsts& C,
+                     const void* f, const void* h, const void* hn,
+                     const void* g, const void* phi, const void* H, void* pf,
+                     void* ph, void* phn, void* pg, void* rhs,
+                     cudaStream_t s) {
+#define EKPNP_CASE(QF_, QS_)                                                  \
+  if (I.qf == QF_ && I.qs == QS_)                                             \
+    return form == 2                                                          \
+               ? launch_collide_rows<T, QF_, QS_, 2>(rb, I, C, f, h, hn, g,   \
+                                                     phi, H, pf, ph, phn, pg, \
+                                                     rhs, s)                  \
+               : launch_collide_rows<T, QF_, QS_, 1>(rb, I, C, f, h, hn, g,   \
+                                                     phi, H, pf, ph, phn, pg, \
+                                                     rhs, s);
   EKPNP_LATTICE_PAIRS(EKPNP_CASE)
 #undef EKPNP_CASE
   return -1;
@@ -487,6 +714,24 @@ int ekpnp_collide(int is_f64, const int* ints, const double* consts,
                                       rhs, s)
                 : collide_any<float>(I, C, f, h, hn, g, phi, pf, ph, phn, pg,
                                      rhs, s);
+}
+
+// form 1: hartley_x, form 2: phi_hx (`phi` is psi_hx); rb y rows per
+// block.  H: the (NX, NX) cas matrix in the tensors' type.  Returns -2 if
+// rb is out of range or its shared memory does not fit.
+int ekpnp_collide_rows(int is_f64, int form, int rb, const int* ints,
+                       const double* consts, const void* f, const void* h,
+                       const void* hn, const void* g, const void* phi,
+                       const void* H, void* pf, void* ph, void* phn, void* pg,
+                       void* rhs, void* stream) {
+  const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
+  const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (form != 1 && form != 2) return -1;
+  return is_f64 ? collide_rows_any<double>(form, rb, I, C, f, h, hn, g, phi,
+                                           H, pf, ph, phn, pg, rhs, s)
+                : collide_rows_any<float>(form, rb, I, C, f, h, hn, g, phi, H,
+                                          pf, ph, phn, pg, rhs, s);
 }
 
 int ekpnp_stream_bc(int is_f64, const int* ints, const double* consts,

@@ -1,22 +1,30 @@
 """The fused LBM step on the card: hand-written CUDA kernels for Hopper.
 
 Replaces the TPU kernel `build_fused_step` of ekpnp/pallas/fused_step.py
-(its `kernel` closure and the `pl.pallas_call`), single-device form: one
-step of every active population (collide, fluid bounce-back, periodic pull
-stream, scalar wall BCs, E from phi, and the Poisson RHS).
+(its `kernel` closure and the `pl.pallas_call`), its three single-device
+forms: one step of every active population (collide, fluid bounce-back,
+periodic pull stream, scalar wall BCs, E from phi, and the Poisson RHS),
+with the RHS plain, or already transformed along x (`hartley_x`), and phi
+taken plain or as psi_hx and decoded in the kernel (`phi_hx`).
 
-Design (csrc/fused_step.cu): two launches per step, one thread per node,
-x fastest.  `collide_kernel` writes the post-collision populations into a
-scratch set of state size (the fluid's reflected pre-collision populations
-at the plates) and the RHS; `stream_bc_kernel` pulls from it and applies
-the scalar wall BCs.  The order is the plain step's exactly
-(ekpnp_torch/step.py).  The TPU kernel's lane padding, strip sizing and
-VMEM knobs have no counterpart: a CUDA thread indexes any NX and NY.
+Design (csrc/fused_step.cu): two launches per step, x fastest.  The
+collide launch writes the post-collision populations into a scratch set of
+state size (the fluid's reflected pre-collision populations at the plates)
+and the RHS: `collide_kernel` (plain RHS, one thread per node) or
+`collide_rows_kernel` (the x-Hartley forms, one block per z and tile of y
+rows, so the block can take each row's product with the (NX, NX) cas
+matrix H in shared memory).  `stream_bc_kernel` pulls from the scratch set
+and applies the scalar wall BCs.  The order is the plain step's exactly
+(ekpnp_torch/step.py).  The TPU kernel's lane padding, strip sizing, VMEM
+knobs and its EKPNP_HXRHS / EKPNP_PHIHX switches have no counterpart: a
+CUDA thread indexes any NX and NY, and the form is an argument.
 
 Bound: device-memory bytes.  Per node and step the pair moves 1736 B with
 every field on D3Q27 in f32 (776 B with D3Q7 scalars): twice the
 population traffic of one fused pass (872 / 392 B).  Fusing the two
-launches is the first item of the perf queue.
+launches is the first item of the perf queue.  The x-Hartley forms add
+2 NX operations per RHS value and per decoded phi value (30 phi rows per
+8-row tile) and one read of H from L2 per block and product.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` of the
 source in this checkout into `ekpnp_torch/_build/`, keyed by a hash of the
@@ -43,11 +51,17 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops.poisson import charge_rhs
+from ..ops.poisson import charge_rhs, phi_from_psi_hx
+from ..parallel.fft import _hartley_matrix, hartley_x_local
 from ..state import State
 from ..step import PostCollision, collide_and_reflect, stream_and_bcs
 
-KERNELS = ("collide_kernel", "stream_bc_kernel")
+# the collide forms (plain RHS, hartley_x, phi_hx) and the stream launch
+KERNELS = ("collide_kernel", "collide_rows_kernel.hartley_x",
+           "collide_rows_kernel.phi_hx", "stream_bc_kernel")
+_COLLIDE_FORMS = {(False, False): "collide_kernel",
+                  (True, False): "collide_rows_kernel.hartley_x",
+                  (True, True): "collide_rows_kernel.phi_hx"}
 # launches of each kernel on the card, counted where it is launched
 launches = {name: 0 for name in KERNELS}
 
@@ -66,9 +80,13 @@ _INTS = ("nx", "ny", "nz", "qf", "qs", "ek", "nspec", "thermal", "cbc",
 _SCALARS = ("inv_cfl", "half_dt", "dt", "kappa", "rhs_scale", "ext_field",
             "exf", "buoy", "hdx", "hdy", "hdz", "f_tscale", "f_ics2", "f_op",
             "f_om", "f_splus", "f_sminus", "s_tscale", "s_ics2", "h_op", "h_om",
-            "K", "hn_op", "hn_om", "Kn", "g_op", "g_om", "joule")
+            "K", "hn_op", "hn_om", "Kn", "g_op", "g_om", "joule", "volt",
+            "volt2")
 _ARRAYS27 = ("wf", "ws", "mw", "gjw", "fwics2")
 _CBC = {"noflux": 0, "injection": 1, "zerograd-top": 2}
+# row-block launch limits, csrc kRowsMax / kSmemMax
+ROWS_MAX = 8
+SMEM_MAX = 232448
 
 _lib = None
 build_info = {}  # seconds, path, log of the build this process loaded
@@ -138,6 +156,8 @@ def _load():
     lib.ekpnp_abi.restype = ci
     lib.ekpnp_collide.argtypes = [ci, vp, vp] + [vp] * 10 + [vp]
     lib.ekpnp_collide.restype = ci
+    lib.ekpnp_collide_rows.argtypes = [ci, ci, ci, vp, vp] + [vp] * 11 + [vp]
+    lib.ekpnp_collide_rows.restype = ci
     lib.ekpnp_stream_bc.argtypes = [ci, vp, vp] + [vp] * 8 + [vp]
     lib.ekpnp_stream_bc.restype = ci
     n_i, n_c = ctypes.c_int(), ctypes.c_int()
@@ -185,7 +205,7 @@ def pack_constants(cfg: Config):
         h_op=dt * om["omega_c_plus"], h_om=dt * om["omega_c_minus"], K=p.K,
         hn_op=dt * om["omega_cn_plus"], hn_om=dt * om["omega_cn_minus"],
         Kn=p.Kn, g_op=dt * om["omega_T_plus"], g_om=dt * om["omega_T_minus"],
-        joule=p.joule,
+        joule=p.joule, volt=p.voltage, volt2=p.voltage2,
     )
 
     def pad27(a):
@@ -216,16 +236,61 @@ def pack_constants(cfg: Config):
 
 
 # ---------------------------------------------------------------------------
+# the x-Hartley forms
+# ---------------------------------------------------------------------------
+
+def resolve_hartley_x(cfg: Config, hartley_x: Optional[bool] = None,
+                      phi_hx: bool = False) -> bool:
+    """The RHS form a call takes, as the TPU kernel resolves it
+    (ekpnp/pallas/fused_step.py build_fused_step): None means on whenever
+    the solve consumes an x-Hartley RHS (EK on, fft_method != "fft");
+    phi_hx implies it.  The port pads no x axis, so the TPU kernel's
+    unpadded-x condition always holds."""
+    ek = cfg.physics.enable_ek
+    if hartley_x is None:
+        hartley_x = phi_hx or (ek and cfg.run.fft_method != "fft")
+    if hartley_x and not ek:
+        raise ValueError("hartley_x RHS emission needs EK on")
+    if phi_hx and not hartley_x:
+        raise ValueError("phi_hx ingestion requires hartley_x emission")
+    return bool(hartley_x)
+
+
+def row_block_rows(nx: int, itemsize: int, phi_hx: bool) -> int:
+    """y rows per block of collide_rows_kernel: 8, halved while the
+    block's shared memory (csrc rows_smem_elems: 8 RHS rows, or for phi_hx
+    two windows of 3 x (rows + 2) rows, each of NX values) exceeds the
+    227 KB a block may use."""
+    rb = ROWS_MAX
+    while True:
+        rows = 2 * 3 * (rb + 2) if phi_hx else rb
+        if rows * nx * itemsize <= SMEM_MAX:
+            return rb
+        if rb == 1:
+            raise ValueError(f"NX={nx} is too wide for the row-block "
+                             f"collide's shared memory")
+        rb //= 2
+
+
+# ---------------------------------------------------------------------------
 # plain versions (the CPU path; compared with the kernels on the card)
 # ---------------------------------------------------------------------------
 
-def collide_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None):
-    """Plain version of collide_kernel: (post_f, post_h, post_hn, post_g,
-    rhs); post_f holds the reflected pre-collision walls."""
+def collide_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None, *,
+                      hartley_x: Optional[bool] = None, phi_hx: bool = False):
+    """Plain version of the collide launch: (post_f, post_h, post_hn,
+    post_g, rhs); post_f holds the reflected pre-collision walls.
+    hartley_x: rhs is the plain RHS times H along x.  phi_hx: `phi` is
+    psi_hx, decoded with `phi_from_psi_hx` first."""
+    hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
+    if phi_hx:
+        phi = phi_from_psi_hx(cfg, phi)
     state = State(f=f, h=h, hn=hn, g=g, phi=phi, t=f.new_zeros(()))
     post, macro = collide_and_reflect(cfg, state)
     rhs = (charge_rhs(cfg, macro.charge, macro.chargen)
            if cfg.physics.enable_ek else None)
+    if hartley_x:
+        rhs = hartley_x_local(rhs)
     return post.f, post.h, post.hn, post.g, rhs
 
 
@@ -234,9 +299,13 @@ def stream_bc_reference(cfg: Config, pf, ph=None, phn=None, pg=None):
     return stream_and_bcs(cfg, PostCollision(f=pf, h=ph, hn=phn, g=pg))
 
 
-def fused_step_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None):
+def fused_step_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None,
+                         *, hartley_x: Optional[bool] = None,
+                         phi_hx: bool = False):
     """Plain version of the fused step: (f1, h1, hn1, g1, rhs)."""
-    pf, ph, phn, pg, rhs = collide_reference(cfg, f, h, hn, g, phi)
+    pf, ph, phn, pg, rhs = collide_reference(cfg, f, h, hn, g, phi,
+                                             hartley_x=hartley_x,
+                                             phi_hx=phi_hx)
     return (*stream_bc_reference(cfg, pf, ph, phn, pg), rhs)
 
 
@@ -320,23 +389,37 @@ def _prep(cfg: Config, tensors: dict, like):
             torch.cuda.current_stream(like.device).cuda_stream)
 
 
-def collide(cfg: Config, f, h=None, hn=None, g=None, phi=None, post=None):
+def collide(cfg: Config, f, h=None, hn=None, g=None, phi=None, post=None, *,
+            hartley_x: Optional[bool] = None, phi_hx: bool = False):
     """Collide + fluid bounce-back + RHS: (post_f, post_h, post_hn, post_g,
-    rhs).  CUDA tensors launch collide_kernel, CPU tensors run
-    `collide_reference`.  `post` may hold a preallocated population set."""
+    rhs).  The form follows `resolve_hartley_x`: the plain RHS
+    (collide_kernel), rhs @ H (hartley_x) or, with `phi` holding psi_hx,
+    phi decoded in the kernel (phi_hx).  CUDA tensors launch that form's
+    kernel, CPU tensors run `collide_reference`.  `post` may hold a
+    preallocated population set."""
+    hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
     if f.device.type == "cpu":
         _check(cfg, dict(f=f, h=h, hn=hn, g=g, phi=phi), f.device, f.dtype)
-        return collide_reference(cfg, f, h, hn, g, phi)
+        return collide_reference(cfg, f, h, hn, g, phi, hartley_x=hartley_x,
+                                 phi_hx=phi_hx)
     lib, ints, consts, is_f64, stream = _prep(
         cfg, dict(f=f, h=h, hn=hn, g=g, phi=phi), f)
     post = post if post is not None else _empty_like_fields(cfg, f)
     rhs = (torch.empty((cfg.grid.nz - 2,) + cfg.grid.shape[1:], dtype=f.dtype,
                        device=f.device) if cfg.physics.enable_ek else None)
+    name = _COLLIDE_FORMS[(hartley_x, phi_hx)]
+    ins = tuple(map(_ptr, (f, h, hn, g, phi)))
+    outs = (*map(_ptr, post), _ptr(rhs))
     with torch.cuda.device(f.device):
-        _launch(lib.ekpnp_collide, "collide_kernel", is_f64,
-                ints.ctypes.data, consts.ctypes.data,
-                *map(_ptr, (f, h, hn, g, phi)), *map(_ptr, post), _ptr(rhs),
-                stream)
+        if hartley_x:
+            H = _hartley_matrix(cfg.grid.nx, f.dtype, f.device)
+            rb = row_block_rows(cfg.grid.nx, f.element_size(), phi_hx)
+            _launch(lib.ekpnp_collide_rows, name, is_f64, 2 if phi_hx else 1,
+                    rb, ints.ctypes.data, consts.ctypes.data, *ins, _ptr(H),
+                    *outs, stream)
+        else:
+            _launch(lib.ekpnp_collide, name, is_f64, ints.ctypes.data,
+                    consts.ctypes.data, *ins, *outs, stream)
     return (*post, rhs)
 
 
@@ -359,14 +442,18 @@ def stream_bc(cfg: Config, pf, ph=None, phn=None, pg=None, out=None):
 
 
 def fused_step(cfg: Config, f, h=None, hn=None, g=None, phi=None,
-               out=None, post=None):
+               out=None, post=None, *, hartley_x: Optional[bool] = None,
+               phi_hx: bool = False):
     """One fused step: (f, h, hn, g, phi) -> (f1, h1, hn1, g1, rhs), rhs the
     interior Poisson RHS planes z = 1..NZ-2 (None without EK): the same
-    contract as the TPU kernel's `apply`.
+    contract as the TPU kernel's `apply`.  `hartley_x` / `phi_hx` choose
+    the collide form (`resolve_hartley_x`; the caller passes the resolved
+    flag on to the solve as `rhs_hx`).
 
     CUDA tensors run the two kernels on the current stream; CPU tensors run
     the plain versions.  `post` (scratch) and `out` (f1, h1, hn1, g1) may be
     preallocated population sets that do not alias the inputs."""
-    pf, ph, phn, pg, rhs = collide(cfg, f, h, hn, g, phi, post=post)
+    pf, ph, phn, pg, rhs = collide(cfg, f, h, hn, g, phi, post=post,
+                                   hartley_x=hartley_x, phi_hx=phi_hx)
     f1, h1, hn1, g1 = stream_bc(cfg, pf, ph, phn, pg, out=out)
     return f1, h1, hn1, g1, rhs

@@ -90,22 +90,38 @@ def guo_force_pops(cfg: Config, u, F):
     cs2 = cfg.cs2
     inv_cfl = 1.0 / cfg.physics.cfl
     ex, ey, ez, w = lattice_consts(cfg.lattice, u.dtype, u.device)
-    eu = (ex * u[0] + ey * u[1] + ez * u[2]) * inv_cfl
-    eF = (ex * F[0] + ey * F[1] + ez * F[2]) * inv_cfl
-    cu = ex * inv_cfl - u[0][None]
-    cv = ey * inv_cfl - u[1][None]
-    cw = ez * inv_cfl - u[2][None]
-    core = (cu * F[0][None] + cv * F[1][None] + cw * F[2][None]) \
-        + eu * eF * (1.0 / cs2)
-    return (w * (1.0 / cs2)) * core
+    # in place, in the order of the formula (equilibrium.feq)
+    eu = ex * u[0]
+    eu += ey * u[1]
+    eu += ez * u[2]
+    eu *= inv_cfl
+    eF = ex * F[0]
+    eF += ey * F[1]
+    eF += ez * F[2]
+    eF *= inv_cfl
+    core = ex * inv_cfl - u[0][None]
+    core *= F[0][None]
+    for e, uk, Fk in ((ey, u[1], F[1]), (ez, u[2], F[2])):
+        c = e * inv_cfl - uk[None]
+        c *= Fk[None]
+        core += c
+    eu *= eF
+    eu *= 1.0 / cs2
+    core += eu
+    return core.mul_(w * (1.0 / cs2))
 
 
 def _trt_update(lat, pops, eq, om_plus_dt, om_minus_dt, source=None, dt=None):
     fp, fm = trt_split(lat, pops)
     ep, em = trt_split(lat, eq)
-    out = pops - (om_plus_dt * (fp - ep) + om_minus_dt * (fm - em))
+    fp -= ep
+    fp *= om_plus_dt
+    fm -= em
+    fm *= om_minus_dt
+    fp += fm
+    out = pops - fp
     if source is not None:
-        out = out + dt * source
+        out += dt * source
     return out
 
 
@@ -158,7 +174,7 @@ def collide(cfg: Config, state: State, perturb: bool = False):
     sp_, sm_ = trt_split(lat, fpop)
     s_plus = 1.0 - 0.5 * dt * om["omega_plus"]
     s_minus = 1.0 - 0.5 * dt * om["omega_minus"]
-    source = s_plus * sp_ + s_minus * sm_
+    source = sp_.mul_(s_plus).add_(sm_.mul_(s_minus))
     f2 = _trt_update(lat, state.f, feq(lat, rho, u, cfl, cs2),
                      dt * om["omega_plus"], dt * om["omega_minus"], source, dt)
 
@@ -180,6 +196,6 @@ def collide(cfg: Config, state: State, perturb: bool = False):
             # as dt w_i S
             S = p.joule * (charge + chargen) * torch.sum(E * E, dim=0)
             w = lattice_consts(lat_s, S.dtype, S.device)[3]
-            g2 = g2 + dt * w * S[None]
+            g2 += (dt * w) * S[None]
 
     return PostCollision(f=f2, h=h2, hn=hn2, g=g2), macro

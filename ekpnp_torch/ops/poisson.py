@@ -9,7 +9,11 @@ Math, identical to the JAX package's:
     x, y; zero mode pinned), inverse, plate rows pinned;
   - reduced form (`poisson_phi_from_rhs`): DST-I in z and real Hartley in
     x, y, with the plates carried by a z-linear lifting profile so the
-    transformed data stays at the charge scale.
+    transformed data stays at the charge scale;
+  - the x-Hartley route of the kernel step: `rhs_hx=True` takes an RHS
+    already transformed along x; `poisson_psi_hx_from_rhs` also leaves its
+    result in x-Hartley space (psi_hx), which the next step's kernel
+    decodes (`phi_from_psi_hx` / `psi_hx_from_phi` are the codec).
 
 Dispatch of fft_method="auto" follows the tensor's device: the CPU takes
 the odd-extension FFT (the golden values rely on it), the card takes the
@@ -99,20 +103,36 @@ def lifting_profile(cfg: Config, dtype: torch.dtype, device: torch.device):
     return torch.as_tensor(prof).to(device=device, dtype=dtype)[:, None, None]
 
 
-def poisson_phi_from_rhs(cfg: Config, rhs):
+def _inv_symbol(cfg: Config, like):
+    """-1/mu with the combined inverse scale of the DST-I (4/NE) and the
+    Hartley/DFT (1/(NY*NX)) stages folded in."""
+    g = cfg.grid
+    return _scaled_inv_symbol(cfg, like.dtype, like.device,
+                              4.0 / (g.ne * g.ny * g.nx))
+
+
+def poisson_phi_from_rhs(cfg: Config, rhs, rhs_hx: bool = False):
     """phi (NZ, NY, NX) from the interior RHS rows z=1..NZ-2 (what the
     fused step emits).  fft_method "fft" runs the x, y stages by FFT;
-    every other value by the real Hartley matrices."""
-    from ..parallel.fft import dst_z, dst_z_padded, fft2_xy, hartley2_xy
+    every other value by the real Hartley matrices.
+
+    rhs_hx=True: the RHS arrives already transformed along x (the fused
+    step's hartley_x form); the separable stages commute, so the solve
+    skips its forward x stage and runs the inverse one last."""
+    from ..parallel.fft import (dst_z, dst_z_padded, fft2_xy, hartley2_xy,
+                                hartley_x_local, hartley_y)
 
     g = cfg.grid
     p = cfg.physics
     dtype = rhs.dtype
-    # combined scale: DST-I inverse (4/NE) and Hartley/DFT inverse 1/(NY*NX)
-    inv_sym = _scaled_inv_symbol(cfg, dtype, rhs.device,
-                                 4.0 / (g.ne * g.ny * g.nx))
+    if rhs_hx and cfg.run.fft_method == "fft":
+        raise ValueError("rhs_hx RHS is Hartley-space; fft_method='fft' "
+                         "cannot consume it")
+    inv_sym = _inv_symbol(cfg, rhs)
     s_z = dst_z(rhs)
-    if cfg.run.fft_method != "fft":
+    if rhs_hx:
+        back = hartley_x_local(hartley_y(hartley_y(s_z) * inv_sym))
+    elif cfg.run.fft_method != "fft":
         back = hartley2_xy(hartley2_xy(s_z) * inv_sym)
     else:
         back = fft2_xy(fft2_xy(s_z) * inv_sym, inverse=True).real.to(dtype) \
@@ -121,6 +141,37 @@ def poisson_phi_from_rhs(cfg: Config, rhs):
     phi[0] = p.voltage
     phi[-1] = p.voltage2
     return phi
+
+
+def poisson_psi_hx_from_rhs(cfg: Config, rhs_hx):
+    """The solve with neither x stage: x-Hartley RHS in (hartley_x),
+    x-Hartley potential psi_hx (NZ, NY, NX) out, its wall rows exactly zero
+    (dst_z_padded emits them), with phi = H_x(psi_hx) + lifting
+    (phi_from_psi_hx; the fused step's phi_hx form decodes it in the
+    kernel)."""
+    from ..parallel.fft import dst_z, dst_z_padded, hartley_y
+
+    if cfg.run.fft_method == "fft":
+        raise ValueError("psi_hx solve requires the Hartley (matmul) path")
+    spec = hartley_y(dst_z(rhs_hx)) * _inv_symbol(cfg, rhs_hx)
+    return dst_z_padded(hartley_y(spec))
+
+
+def phi_from_psi_hx(cfg: Config, psi):
+    """Decode the x-Hartley potential: phi = H_x(psi) + lifting.  The wall
+    rows come out voltage / voltage2 (psi's wall rows are zero)."""
+    from ..parallel.fft import hartley_x_local
+
+    return hartley_x_local(psi) + lifting_profile(cfg, psi.dtype, psi.device)
+
+
+def psi_hx_from_phi(cfg: Config, phi):
+    """Encode real phi into x-Hartley space: psi = H_x(phi - lifting)/NX
+    (H_x is self-inverse up to NX)."""
+    from ..parallel.fft import hartley_x_local
+
+    lift = lifting_profile(cfg, phi.dtype, phi.device)
+    return hartley_x_local(phi - lift) * (1.0 / cfg.grid.nx)
 
 
 def poisson_solve_dst(cfg: Config, charge, chargen):

@@ -10,7 +10,11 @@ so a time loop copies none of them to the card twice.  Float32 products run
 in full float32: the port's entry points switch TF32 off
 (device.torch_setup).
 
-The multi-device (slab / pencil) forms of the JAX package are not here.
+`hartley_y` and `hartley_x_local` are the single stages the x-Hartley
+route uses (ops/poisson.py rhs_hx / psi_hx): the fused step kernel does
+the x stages itself on the card (kernels/fused_step.py hartley_x, phi_hx),
+and these are their plain versions.  The multi-device (slab / pencil)
+forms of the JAX package are not here.
 """
 from __future__ import annotations
 
@@ -82,9 +86,25 @@ def _hartley_matrix(n: int, dtype: torch.dtype, device: torch.device):
                                                          dtype=dtype)
 
 
+def _apply_hartley(a, axis: int):
+    return _contract(_hartley_matrix(a.shape[axis], a.dtype, a.device), a, axis)
+
+
 def hartley2_xy(a):
     """Unnormalized real Hartley transform along (y, x) of real
     (NZI, NY, NX); self-inverse up to 1/(NY*NX)."""
     for ax in (1, 2):
-        a = _contract(_hartley_matrix(a.shape[ax], a.dtype, a.device), a, ax)
+        a = _apply_hartley(a, ax)
     return a
+
+
+def hartley_y(a):
+    """The y stage of hartley2_xy alone, for data whose x axis is already
+    in Hartley space (the fused step's hartley_x RHS, psi_hx)."""
+    return _apply_hartley(a, 1)
+
+
+def hartley_x_local(a):
+    """One unnormalized x-Hartley stage (`a @ H` along the last axis); the
+    plain version of the fused step's in-kernel x products."""
+    return _apply_hartley(a, 2)

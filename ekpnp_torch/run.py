@@ -14,11 +14,13 @@ Outputs in --outdir, as the JAX package writes them:
     data_end.dat  reference-layout ASCII checkpoint
 
 On the card the time loop runs the hand-written fused step kernels
-(ekpnp_torch/kernels); on the CPU their plain version.  A non-finite state
-at a diagnostics event aborts with exit code 2.  Dumps are written
-synchronously, inside the timed loop.  Not in this port yet: --resume,
---mesh, --distributed, --vtk, --save-scalars, --profile,
---checkpoint-full, `merge`, and the perturbed first step on the card.
+(ekpnp_torch/kernels); on the CPU their plain version.  The perturbed first
+step (`perturb_first_step`) runs the plain step, on the card's tensors
+where the run is on the card, as the JAX package runs it through its
+oracle.  A non-finite state at a diagnostics event aborts with exit code
+2.  Dumps are written synchronously, inside the timed loop.  Not in this
+port yet: --resume, --mesh, --distributed, --vtk, --save-scalars,
+--profile, --checkpoint-full and `merge`.
 """
 from __future__ import annotations
 
@@ -83,10 +85,6 @@ def cmd_run(args):
             and "dtype" not in _parse_overrides(args.set)):
         args.precision = "f32"
     cfg = build_config(args)
-    if cfg.run.perturb_first_step and dev.type == "cuda":
-        raise SystemExit("perturb_first_step is not supported on the card "
-                         "yet: the fused step kernels do not seed the "
-                         "convection pattern (run it with --device cpu)")
 
     from .diagnostics import dimensionless_banner, series_point
     from .init import initialize
@@ -140,7 +138,8 @@ def cmd_run(args):
                            float(state.t), first=True)
 
         # one step before the clock starts (the reference times the loop
-        # only); it seeds the convection pattern when configured (CPU only)
+        # only); when configured it seeds the convection pattern through
+        # the plain step, which the kernels do not implement
         if cfg.run.perturb_first_step:
             state, _ = plain_step(cfg, state, perturb=True)
         else:

@@ -168,6 +168,60 @@ def test_poisson_phi_from_rhs_and_efield(fft_method):
     close(jp.efield(jcfg, phi_a), tp.efield(tcfg, phi_b), atol=1e-8)
 
 
+HX_FUNCTIONS = ("hartley_y", "hartley_x_local", "poisson_phi_from_rhs_hx",
+                "poisson_psi_hx_from_rhs", "phi_from_psi_hx", "psi_hx_from_phi")
+
+
+@pytest.mark.parametrize("fn", HX_FUNCTIONS)
+@pytest.mark.parametrize("case", ["A", "C"])
+def test_x_hartley_route_functions(case, fn):
+    """The single transform stages and the solve / codec functions of the
+    x-Hartley route against ekpnp.parallel.fft and ekpnp.ops.poisson, on a
+    seeded RHS (as tests/test_poisson.py:119-135 builds it) and a seeded
+    phi; the solve forms also equal the plain solve, and refuse
+    fft_method="fft" as the JAX package's do."""
+    from ekpnp.ops import poisson as jp
+    from ekpnp.parallel import fft as jf
+    from ekpnp_torch.ops import poisson as tp
+    from ekpnp_torch.parallel import fft as tf
+
+    jcfg, tcfg = configs(case)
+    g = jcfg.grid
+    rng = np.random.default_rng(5)
+    c, cn = (rng.random(g.shape) for _ in range(2))
+    rhs = np.array(jp.charge_rhs(jcfg, jnp.asarray(c), jnp.asarray(cn)))
+    rhs_hx = np.array(jf.hartley_x_local(jnp.asarray(rhs)))
+    T = torch.as_tensor
+    if fn in ("hartley_y", "hartley_x_local"):
+        a = rng.standard_normal((g.nz - 2, g.ny, g.nx))
+        close(getattr(jf, fn)(jnp.asarray(a)), getattr(tf, fn)(T(a)))
+    elif fn == "poisson_phi_from_rhs_hx":
+        phi = tp.poisson_phi_from_rhs(tcfg, T(rhs_hx), rhs_hx=True)
+        close(jp.poisson_phi_from_rhs(jcfg, jnp.asarray(rhs_hx), rhs_hx=True), phi)
+        close(tp.poisson_phi_from_rhs(tcfg, T(rhs)), phi)
+        with pytest.raises(ValueError, match="rhs_hx"):
+            tp.poisson_phi_from_rhs(configs(case, fft_method="fft")[1],
+                                    T(rhs_hx), rhs_hx=True)
+    elif fn == "poisson_psi_hx_from_rhs":
+        psi = tp.poisson_psi_hx_from_rhs(tcfg, T(rhs_hx))
+        close(jp.poisson_psi_hx_from_rhs(jcfg, jnp.asarray(rhs_hx)), psi)
+        assert not psi[0].any() and not psi[-1].any()
+        close(tp.poisson_phi_from_rhs(tcfg, T(rhs)), tp.phi_from_psi_hx(tcfg, psi))
+        with pytest.raises(ValueError, match="psi_hx"):
+            tp.poisson_psi_hx_from_rhs(configs(case, fft_method="fft")[1],
+                                       T(rhs_hx))
+    elif fn == "phi_from_psi_hx":
+        psi = 1e-4 * rng.standard_normal(g.shape)
+        psi[0] = psi[-1] = 0.0
+        close(jp.phi_from_psi_hx(jcfg, jnp.asarray(psi)),
+              tp.phi_from_psi_hx(tcfg, T(psi)))
+    else:
+        phi = jcfg.physics.voltage * (1.0 + 0.05 * rng.standard_normal(g.shape))
+        psi = tp.psi_hx_from_phi(tcfg, T(phi))
+        close(jp.psi_hx_from_phi(jcfg, jnp.asarray(phi)), psi)
+        close(phi, tp.phi_from_psi_hx(tcfg, psi))
+
+
 def test_pb_init_20_iterations():
     from ekpnp.ops.pbe import pb_init as jpb
     from ekpnp_torch.ops.pbe import pb_init as tpb

@@ -104,3 +104,60 @@ def test_fused_step_dispatch_on_cpu_runs_the_plain_version():
     with pytest.raises(ValueError, match="shape"):
         fs.fused_step(cfg, st.f[:, 1:], st.h, st.hn, st.g, st.phi)
 
+
+
+def test_plain_x_hartley_forms_transform_the_plain_form():
+    """The plain versions of the x-Hartley forms: hartley_x emits the plain
+    form's RHS times H along x (max abs diff <= 1e-15) with the same
+    populations; phi_hx equals hartley_x on the decoded potential.  The
+    CPU dispatch runs them and launches nothing."""
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.ops.poisson import phi_from_psi_hx, psi_hx_from_phi
+    from ekpnp_torch.parallel.fft import hartley_x_local
+    from test_torch_common import configs, make_state_np, port_state
+
+    _, cfg = configs("B")
+    st = port_state(cfg, make_state_np(cfg, seed=22))
+    pops = (st.f, st.h, st.hn, st.g)
+    plain = fs.collide_reference(cfg, *pops, st.phi, hartley_x=False)
+    hx = fs.collide_reference(cfg, *pops, st.phi, hartley_x=True)
+    assert float((hx[4] - hartley_x_local(plain[4])).abs().max()) <= 1e-15
+    for a, b in zip(hx[:4], plain[:4]):
+        assert torch.equal(a, b)
+    psi = psi_hx_from_phi(cfg, st.phi)
+    want = fs.fused_step_reference(cfg, *pops, phi_from_psi_hx(cfg, psi),
+                                   hartley_x=True)
+    before = dict(fs.launches)
+    got = fs.fused_step(cfg, *pops, psi, phi_hx=True)
+    assert fs.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_form_resolution_phi_hx_gate_and_row_blocks():
+    import ekpnp_torch
+    from ekpnp_torch.kernels.fused_step import (resolve_hartley_x,
+                                                row_block_rows)
+    from ekpnp_torch.kernels.step import phi_hx_capable
+
+    small = dict(nx=16, ny=8, nz=9)
+    ek = ekpnp_torch.preset("reference", fft_method="matmul", **small)
+    auto = ekpnp_torch.preset("reference", **small)
+    fft = ekpnp_torch.preset("reference", fft_method="fft", **small)
+    fluid = ekpnp_torch.preset("reference", enable_ek=False, **small)
+    assert resolve_hartley_x(ek) and resolve_hartley_x(auto)
+    assert not resolve_hartley_x(fft) and not resolve_hartley_x(fluid)
+    assert not resolve_hartley_x(ek, hartley_x=False)
+    assert resolve_hartley_x(fft, phi_hx=True)
+    with pytest.raises(ValueError, match="EK"):
+        resolve_hartley_x(fluid, hartley_x=True)
+    with pytest.raises(ValueError, match="phi_hx"):
+        resolve_hartley_x(ek, hartley_x=False, phi_hx=True)
+    assert phi_hx_capable(ek) and phi_hx_capable(auto)
+    assert not phi_hx_capable(fft) and not phi_hx_capable(fluid)
+    # rows per block: 8, halved until the shared memory fits 227 KB
+    assert row_block_rows(256, 4, True) == row_block_rows(256, 8, True) == 8
+    assert row_block_rows(1024, 8, True) == 2
+    assert row_block_rows(4096, 8, False) == 4
+    with pytest.raises(ValueError, match="too wide"):
+        row_block_rows(4096, 8, True)
