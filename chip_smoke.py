@@ -29,9 +29,35 @@ printing the final line, if any phase fails:
      each kernel is held to its plain version on that run's state;
   6. the CLI with the perturbed first step, 10 steps on the card: rc 0,
      finite series;
-  7. one JSON line describing each CUDA kernel (each collide form);
+then the sharded time loop (ekpnp_torch/parallel), its shards all on the
+one card (a mesh may hold a device more than once):
+  3b. every sharded kernel form against its plain version, on slab 2,
+     slab 4 and pencil 2x2 meshes, cases A-J and 50x8x51, f64 and f32, two
+     rounds per case (the halo exchange of parallel/halo.py between): the
+     .halo collide forms (plain RHS; with EK also hartley_x and phi_hx) and
+     the .shard_x collide on pencils, stream_bc .halo on both, <= 1e-12
+     (f64) / 1e-5 (f32); 3 sharded steps against 3 single-device steps on
+     the same route; the overlapped chunk equal to the serial one bit for
+     bit;
+  4b. golden: `reference`, f64, 60 steps on a slab-2 mesh (phi_hx route per
+     shard, its launches counted), rtol 1e-9;
+  5b. full size: `ek-pnp-thermal` 256x256x257 f32 from phase 5's start
+     state, 20 steps on slab 4 (phi_hx .halo route) and 20 on pencil 2x2
+     (shard_x route), each held to 20 single-device steps (F32_SHARDED);
+     on slab 4 also 10 steps with phi_hx off (hartley_x .halo) and 10 with
+     fft_method "fft" (plain-RHS .halo); each form timed by CUDA events on
+     shard 0 and held to its plain version there.  Then the `pod` preset
+     (BASELINE config 5, 512x256x257, f32, every field D3Q27, PB init with
+     pb_omega 0.02): 50 steps on slab 4 and 50 on pencil 2x2 (re-sharded
+     from the slab run's state), ms/step, MLUPS, per-launch, exchange and
+     solve times, launch counts, peak memory;
+  6b. the CLI with `--mesh slab --mesh-devices 4`, 10 steps, then `merge`:
+     rc 0, a merged data.dat, finite series;
+  7. one JSON line describing each CUDA kernel form;
   8. the final line {"ok": true, "device": {...}}.
-Details go to smoke_out/chip_smoke.json.
+Launch counts are zeroed before each main-path run and read after it: a
+sharded run must show steps x shards launches of its route's forms and
+none of any other.  Details go to smoke_out/chip_smoke.json.
 """
 import json
 import os
@@ -74,13 +100,27 @@ CASES = {
 }
 SOURCE = "ekpnp_torch/csrc/fused_step.cu"
 # the TPU kernel each launch replaces: the pl.pallas_call of
-# build_fused_step, and for the x-Hartley forms the lines of the form
+# build_fused_step, and for the other forms the lines of the form (the
+# halo inputs of halo=True, the pcol inputs of shard_x, the halo blocks
+# the stream reads)
 REPLACES = {
     "collide_kernel": "ekpnp/pallas/fused_step.py:1321",
     "collide_rows_kernel.hartley_x": "ekpnp/pallas/fused_step.py:984",
     "collide_rows_kernel.phi_hx": "ekpnp/pallas/fused_step.py:680",
     "stream_bc_kernel": "ekpnp/pallas/fused_step.py:1321",
+    "collide_kernel.halo": "ekpnp/pallas/fused_step.py:516",
+    "collide_rows_kernel.hartley_x.halo": "ekpnp/pallas/fused_step.py:516",
+    "collide_rows_kernel.phi_hx.halo": "ekpnp/pallas/fused_step.py:516",
+    "collide_kernel.shard_x": "ekpnp/pallas/fused_step.py:521",
+    "stream_bc_kernel.halo": "ekpnp/pallas/fused_step.py:570",
 }
+# the sharded meshes of phase 3b: (shards, pencil)
+MESHES = {"slab2": (2, False), "slab4": (4, False), "pencil2x2": (4, True)}
+# f32 tolerance of a 20-step sharded run against the single-device run
+# (max|d| / max|ref| per field): the distributed solve sums in another
+# order than the single-device one, and the pencil takes the plain-RHS
+# route where the single device takes phi_hx
+F32_SHARDED = 1e-4
 # the collide forms: (kernel, keyword arguments of fused_step.collide)
 FORMS = (("collide_kernel", dict(hartley_x=False)),
          ("collide_rows_kernel.hartley_x", dict(hartley_x=True)),
@@ -170,12 +210,27 @@ def phase_build():
     info = fs.build_info
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", info["log"])]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", info["log"])]
+    # registers per kernel (and form / halo instantiation) and type, max
+    # over the lattice pairs
+    fam = {}
+    for name in re.findall(r"Compiling entry function '(\w+)'", info["log"]):
+        m = re.search(r"(collide_rows_kernel|collide_kernel|"
+                      r"stream_bc_halo_kernel|stream_bc_kernel)"
+                      r"I([fd])Li\d+ELi\d+E(?:Li(\d)E)?", name)
+        used = re.search(r"Used (\d+) registers",
+                         info["log"][info["log"].index(name):])
+        if m and used:
+            key = (m.group(1) + (f".{m.group(3)}" if m.group(3) else "")
+                   + (".global" if "PhiGlobal" in name else "")
+                   + f" {m.group(2)}")
+            fam[key] = max(fam.get(key, 0), int(used.group(1)))
     log(f"build: {info['seconds']:.1f} s nvcc, {secs:.1f} s build+load; "
         f"{len(regs)} kernel instantiations, registers max {max(regs or [0])}, "
-        f"spill stores max {max(spills or [0])} B")
+        f"spill stores max {max(spills or [0])} B; registers by kernel: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(fam.items())))
     return {"nvcc_s": info["seconds"], "load_s": secs,
             "registers_max": max(regs or [0]), "spill_max": max(spills or [0]),
-            "ptxas": info["log"]}
+            "registers": fam, "ptxas": info["log"]}
 
 
 def _form_inputs(cfg, ins, kw):
@@ -246,27 +301,14 @@ def phase_kernels_vs_plain():
     return worst
 
 
-def phase_golden():
+def _golden_devs(cfg, state, label):
+    """Relative deviations of a state's golden values; fails above 1e-9."""
     import torch
 
-    import ekpnp_torch
     from ekpnp_torch.diagnostics import ionic_current, umax
-    from ekpnp_torch.init import initialize
-    from ekpnp_torch.kernels import fused_step as fs
-    from ekpnp_torch.kernels.step import multi_step
     from ekpnp_torch.ops.collide import compute_macro
     from ekpnp_torch.ops.poisson import efield
 
-    cfg = ekpnp_torch.preset("reference", dtype="float64")
-    state, _ = initialize(cfg, device="cuda")
-    fs.reset_launches()
-    state = multi_step(cfg, state, 60)
-    counts = dict(fs.launches)
-    want = {k: 0 for k in fs.KERNELS}
-    want.update({"collide_rows_kernel.phi_hx": 60, "stream_bc_kernel": 60})
-    if counts != want:
-        raise SystemExit(f"chip_smoke: golden run launches {counts}, want "
-                         f"{want}: it did not take the x-Hartley route")
     macro, _ = compute_macro(cfg, state)
     E = efield(cfg, state.phi)
     got = {
@@ -283,12 +325,40 @@ def phase_golden():
     devs = {k: abs(float(got[k]) / want - 1.0) for k, want in GOLDEN.items()}
     for k, e in devs.items():
         if e > 1e-9:
-            raise SystemExit(f"chip_smoke: golden {k} = {float(got[k])!r}, "
-                             f"want {GOLDEN[k]!r} (rel {e:.3e})")
+            raise SystemExit(f"chip_smoke: {label}: golden {k} = "
+                             f"{float(got[k])!r}, want {GOLDEN[k]!r} "
+                             f"(rel {e:.3e})")
     worst = max(devs.values())
-    log(f"golden (reference, f64, 60 steps, phi_hx route): max rel dev "
-        f"{worst:.2e} ({max(devs, key=devs.get)})")
+    log(f"{label}: max rel dev {worst:.2e} ({max(devs, key=devs.get)})")
     return devs
+
+
+def _want_launches(counts, label, **want):
+    """counts must be `want` and 0 for every other kernel form."""
+    from ekpnp_torch.kernels.fused_step import KERNELS
+
+    full = {k: 0 for k in KERNELS}
+    full.update(want)
+    if counts != full:
+        raise SystemExit(f"chip_smoke: {label}: launches {counts}, want "
+                         f"{full}: the path bypassed its kernel forms")
+
+
+def phase_golden():
+    import ekpnp_torch
+    from ekpnp_torch.init import initialize
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.kernels.step import multi_step
+
+    cfg = ekpnp_torch.preset("reference", dtype="float64")
+    state, _ = initialize(cfg, device="cuda")
+    fs.reset_launches()
+    state = multi_step(cfg, state, 60)
+    _want_launches(dict(fs.launches), "golden run (x-Hartley route)",
+                   **{"collide_rows_kernel.phi_hx": 60,
+                      "stream_bc_kernel": 60})
+    return _golden_devs(cfg, state,
+                        "golden (reference, f64, 60 steps, phi_hx route)")
 
 
 def _events_ms(fn, reps):
@@ -352,13 +422,7 @@ def _chunks(cfg, state, steps, every, run, label):
 def _expect_launches(label, counts, form, steps):
     """The run launched `form` and stream_bc_kernel once per step and no
     other collide form."""
-    from ekpnp_torch.kernels.fused_step import KERNELS
-
-    want = {k: 0 for k in KERNELS}
-    want.update({form: steps, "stream_bc_kernel": steps})
-    if counts != want:
-        raise SystemExit(f"chip_smoke: {label}: launches {counts}, want {want}:"
-                         f" the path bypassed its kernel")
+    _want_launches(counts, label, **{form: steps, "stream_bc_kernel": steps})
 
 
 def drive(label, cfg, make, steps, every, other_steps, bw):
@@ -518,12 +582,15 @@ def phase_main_path(bw):
     # diverges at NZ = 257 in both packages (the JAX package's pb_init gives
     # NaN there in f64 too); 0.02 converges within the 501 iterations.
     cfg = ekpnp_torch.preset("ek-pnp-thermal", pb_omega=0.02)
+    start = {}
 
     def cold_start():
         state, _, res = initialize(cfg, device="cuda", with_residual=True)
         log(f"  ek-pnp-thermal PB init: {cfg.physics.pb_iters} iterations, "
             f"pb_omega {cfg.physics.pb_omega}, final relative update "
             f"{float(res):.3e}")
+        # the sharded runs (phase 5b) start from a copy of this state
+        start["state"] = _clone(state)
         return state
 
     full, state = drive("ek-pnp-thermal", cfg, cold_start, 100, 50, 50, bw)
@@ -553,7 +620,437 @@ def phase_main_path(bw):
     fft = drive_plain_rhs("headline-d3q7 fft", fcfg, state, 40, 20)
     del state
     torch.cuda.empty_cache()
-    return full, head, fft
+    return full, head, fft, (cfg, start["state"])
+
+
+def _clone(state):
+    return state.__class__(*(None if a is None else a.clone() for a in state))
+
+# ---------------------------------------------------------------------------
+# the sharded time loop (ekpnp_torch/parallel), every shard on the one card
+# ---------------------------------------------------------------------------
+
+def _cuda_mesh(name):
+    from ekpnp_torch.parallel.mesh import make_mesh
+
+    n, pencil = MESHES[name]
+    return make_mesh(["cuda"] * n, pencil=pencil)
+
+
+def _shard_forms(cfg, mesh):
+    """(kernel form, collide kwargs) of a sharded config: the plain RHS
+    (.halo on a slab, .shard_x on a pencil; without EK the collide takes
+    no halo); on a slab with EK and the Hartley solve also hartley_x and
+    phi_hx (.halo)."""
+    if not cfg.physics.enable_ek:
+        return [("collide_kernel", dict(hartley_x=False))]
+    if mesh.pencil:
+        return [("collide_kernel.shard_x", dict(hartley_x=False))]
+    forms = [("collide_kernel.halo", dict(hartley_x=False))]
+    if cfg.run.fft_method != "fft":
+        forms += [("collide_rows_kernel.hartley_x.halo", dict(hartley_x=True)),
+                  ("collide_rows_kernel.phi_hx.halo", dict(phi_hx=True))]
+    return forms
+
+
+def _shard_inputs(cfg, mesh, state, kw):
+    """Per shard the collide inputs (f, h, hn, g, phi) of a form and their
+    PhiHalo: phi_hx takes psi_hx (encoded per shard) and its halo."""
+    from ekpnp_torch.ops.poisson import psi_hx_from_phi
+    from ekpnp_torch.parallel.halo import phi_halos
+    from ekpnp_torch.parallel.mesh import shard
+
+    phi = state.phi
+    if phi is not None and kw.get("phi_hx"):
+        phi = psi_hx_from_phi(cfg, phi, mesh)
+    halos = phi_halos(mesh, phi) if phi is not None else [None] * mesh.size
+    ins = [(*shard(state, i)[:4], None if phi is None else phi[i])
+           for i in range(mesh.size)]
+    return ins, halos
+
+
+def _record(errs, label, got, want, names=("f", "h", "hn", "g", "rhs")):
+    for fld, a, b in zip(names, got, want):
+        if b is None:
+            assert a is None, (label, fld)
+            continue
+        errs[(label, fld)] = max(errs.get((label, fld), 0.0), rel_err(a, b))
+
+
+def phase_sharded_kernels_vs_plain():
+    """3b: every sharded form against its plain version, per shard, on the
+    meshes of MESHES; then the sharded chunk against the single-device one,
+    and overlapped against serial."""
+    import torch
+
+    import ekpnp_torch
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.kernels.step import multi_step, multi_step_rhs
+    from ekpnp_torch.parallel.halo import (make_halo_multi_step, post_rows,
+                                           step_halo)
+    from ekpnp_torch.parallel.mesh import gather_state, local_cfg, shard_state
+
+    worst = {}
+    for dtype in ("float64", "float32"):
+        for seed, (case, (name, ov)) in enumerate(CASES.items()):
+            cfg = ekpnp_torch.preset(name, dtype=dtype, **ov)
+            st = make_state(cfg, seed=seed, device="cuda")
+            errs = {}
+            for mname in MESHES:
+                mesh = _cuda_mesh(mname)
+                cfg_l = local_cfg(cfg, mesh)
+                sh = shard_state(cfg, mesh, st)
+                for _ in range(2):
+                    for kname, kw in _shard_forms(cfg, mesh):
+                        ins, halos = _shard_inputs(cfg, mesh, sh, kw)
+                        posts = []
+                        for x, h in zip(ins, halos):
+                            k = fs.collide(cfg_l, *x, phi_halo=h, **kw)
+                            _record(errs, kname, k, fs.collide_reference(
+                                cfg_l, *x, phi_halo=h, **kw))
+                            posts.append(k[:4])
+                        if kw.get("hartley_x") is False:
+                            for p, r in zip(posts, post_rows(cfg_l, mesh,
+                                                             posts)):
+                                _record(errs, "stream_bc_kernel.halo",
+                                        fs.stream_bc(cfg_l, *p, rows=r),
+                                        fs.stream_bc_reference(cfg_l, *p,
+                                                               rows=r))
+                    sh = step_halo(cfg, mesh, sh)
+                # the whole chunk: against one device, and overlap vs serial
+                single = multi_step_rhs if mesh.pencil else multi_step
+                want = single(cfg, _clone(st), 3)
+                runs = [gather_state(mesh, make_halo_multi_step(
+                    cfg, mesh, 3, overlap=ov_)(shard_state(cfg, mesh, st)))
+                    for ov_ in (True, False)]
+                _record(errs, f"chunk {mname}", runs[0][:5], want[:5],
+                        names=("f", "h", "hn", "g", "phi"))
+                for a, b in zip(runs[0], runs[1]):
+                    if a is not None and not torch.equal(a, b):
+                        raise SystemExit(f"chip_smoke: {case} {dtype} {mname}:"
+                                         f" overlapped chunk != serial")
+            torch.cuda.synchronize()
+            log(f"  sharded case {case:8s} {dtype}: " + " ".join(
+                f"{lab.replace('_kernel', '').replace('collide_rows', 'rows')}"
+                f":{f} {e:.1e}" for (lab, f), e in errs.items()
+                if f in ("f", "rhs")))
+            for (lab, fld), e in errs.items():
+                if e > TOL[dtype]:
+                    raise SystemExit(f"chip_smoke: sharded {case} {dtype} {lab}"
+                                     f" {fld} rel err {e:.3e} > {TOL[dtype]}")
+                worst[(dtype, lab)] = max(worst.get((dtype, lab), 0.0), e)
+    log("sharded kernels vs plain (every form, slab 2 / slab 4 / pencil 2x2), "
+        "chunks vs one device: within 1e-12 (f64) / 1e-5 (f32); overlapped "
+        "chunk = serial bit for bit")
+    return worst
+
+
+def phase_sharded_golden():
+    """4b: the golden values through a slab-2 mesh (phi_hx route per
+    shard)."""
+    import ekpnp_torch
+    from ekpnp_torch.init import initialize
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.parallel.mesh import (gather_state,
+                                           make_sharded_multi_step,
+                                           shard_state)
+
+    cfg = ekpnp_torch.preset("reference", dtype="float64")
+    mesh = _cuda_mesh("slab2")
+    state = shard_state(cfg, mesh, initialize(cfg, device="cuda")[0])
+    fs.reset_launches()
+    state = make_sharded_multi_step(cfg, mesh, 60)(state)
+    _want_launches(dict(fs.launches), "sharded golden run",
+                   **{"collide_rows_kernel.phi_hx.halo": 120,
+                      "stream_bc_kernel.halo": 120})
+    return _golden_devs(cfg, gather_state(mesh, state),
+                        "golden through a slab-2 mesh (reference, f64, 60 "
+                        "steps, phi_hx .halo route)")
+
+
+def _sharded_chunks(cfg, mesh, state, steps, every, label, **kw):
+    """make_halo_multi_step in chunks of `every` steps, a series point after
+    each; returns (state, seconds per step of each chunk)."""
+    import torch
+
+    from ekpnp_torch.diagnostics import series_point
+    from ekpnp_torch.parallel.halo import make_halo_multi_step
+
+    chunks, done = [], 0
+    while done < steps:
+        n = min(every, steps - done)
+        t0 = time.perf_counter()
+        state = make_halo_multi_step(cfg, mesh, n, **kw)(state)
+        torch.cuda.synchronize()
+        chunks.append((time.perf_counter() - t0) / n)
+        done += n
+        um, umag, cur, mean_t, fin = (x.item() for x in
+                                      series_point(cfg, state, mesh))
+        log(f"  {label} step {done}: umax {um:.6g} |u|max {umag:.6g} "
+            f"current {cur:.6g} <T> {mean_t:.6g} finite {fin}")
+        if not fin:
+            raise SystemExit(f"chip_smoke: {label}: non-finite state")
+    return state, chunks
+
+
+def time_sharded(cfg, mesh, state, bw):
+    """Per form on shard 0: CUDA-event time, bound, and the plain
+    version's time and error (fails above TOL); the exchange (phi halo + post rows of
+    every shard), the distributed solve of the route, and the pencil's
+    column repair, all shards."""
+    import torch
+
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.ops.poisson import (poisson_phi_from_rhs,
+                                         poisson_psi_hx_from_rhs)
+    from ekpnp_torch.parallel.fft import hartley_x_local
+    from ekpnp_torch.parallel.halo import fix_x_columns, phi_halos, post_rows
+    from ekpnp_torch.parallel.mesh import local_cfg
+
+    cfg_l = local_cfg(cfg, mesh)
+    nb = lambda ts: sum(t.numel() * t.element_size()
+                        for t in ts if t is not None)
+    res = dict(kernel_ms={}, plain_ms={}, library_ms={}, bound_ms={},
+               bound_by={}, rel_err={}, abs_err={}, other_ms={})
+    peak = PEAK[cfg.run.dtype]
+
+    def bound(k, nbytes, ops):
+        tb, to = nbytes / bw * 1e3, ops / peak * 1e3
+        res["bound_ms"][k] = max(tb, to)
+        res["bound_by"][k] = "bytes" if tb >= to else "operations"
+
+    def check(k, got, want):
+        pairs = [(a, b) for a, b in zip(got, want) if b is not None]
+        res["rel_err"][k] = max(rel_err(a, b) for a, b in pairs)
+        res["abs_err"][k] = max(float((a - b).abs().max()) for a, b in pairs)
+        if res["rel_err"][k] > TOL[cfg.run.dtype]:
+            raise SystemExit(f"chip_smoke: sharded {k} vs plain rel err "
+                             f"{res['rel_err'][k]:.3e}")
+
+    for kname, kw in _shard_forms(cfg, mesh):
+        ins, halos = _shard_inputs(cfg, mesh, state, kw)
+        x, h = ins[0], halos[0]
+        posts = [fs.collide(cfg_l, *xi, phi_halo=hi, **kw)
+                 for xi, hi in zip(ins, halos)]
+        post = posts[0]
+        res["kernel_ms"][kname] = _events_ms(
+            lambda: fs.collide(cfg_l, *x, post=post[:4], phi_halo=h, **kw), 10)
+        base = kname.replace(".halo", "").replace(".shard_x", "")
+        bound(kname, nb(x) + nb(h) + nb(post), _ops_collide(cfg_l, base))
+        res["library_ms"][kname] = (None if base == "collide_kernel" else
+                                    _events_ms(lambda: hartley_x_local(
+                                        x[4] if kw.get("phi_hx") else post[4]),
+                                        10))
+        check(kname, post, fs.collide_reference(cfg_l, *x, phi_halo=h, **kw))
+        res["plain_ms"][kname] = _events_ms(
+            lambda: fs.collide_reference(cfg_l, *x, phi_halo=h, **kw), 2)
+        rhs = [p[4] for p in posts]
+        if kw.get("phi_hx"):
+            res["other_ms"]["solve psi_hx"] = _events_ms(
+                lambda: poisson_psi_hx_from_rhs(cfg, rhs, mesh), 10)
+        elif kw.get("hartley_x"):
+            res["other_ms"]["solve rhs_hx"] = _events_ms(
+                lambda: poisson_phi_from_rhs(cfg, rhs, mesh, rhs_hx=True), 10)
+        if kw.get("hartley_x") is not False:
+            del posts, post
+            continue
+        if rhs[0] is not None:
+            res["other_ms"]["solve plain"] = _events_ms(
+                lambda: poisson_phi_from_rhs(cfg, rhs, mesh), 10)
+        pops = [p[:4] for p in posts]
+        rows = post_rows(cfg_l, mesh, pops)
+        out = fs.stream_bc(cfg_l, *pops[0], rows=rows[0])
+        k = "stream_bc_kernel.halo"
+        res["kernel_ms"][k] = _events_ms(
+            lambda: fs.stream_bc(cfg_l, *pops[0], out=out, rows=rows[0]), 10)
+        bound(k, 2 * nb(pops[0]) + sum(nb(r) for r in rows[0] if r), 0)
+        res["library_ms"][k] = None
+        check(k, out, fs.stream_bc_reference(cfg_l, *pops[0], rows=rows[0]))
+        res["plain_ms"][k] = _events_ms(
+            lambda: fs.stream_bc_reference(cfg_l, *pops[0], rows=rows[0]), 2)
+        phi = state.phi
+        res["other_ms"]["exchange"] = _events_ms(
+            lambda: (phi_halos(mesh, phi) if phi is not None else None,
+                     post_rows(cfg_l, mesh, pops)), 10)
+        res["exchange_bytes"] = (
+            sum(nb(hh) for hh in halos if hh is not None)
+            + sum(nb(r) for rr in rows for r in rr if r))
+        if mesh.pencil:
+            outs = [out] + [fs.stream_bc(cfg_l, *p, rows=r)
+                            for p, r in zip(pops[1:], rows[1:])]
+            res["other_ms"]["column fix"] = _events_ms(
+                lambda: fix_x_columns(cfg_l, mesh, outs), 10)
+            del outs
+        del posts, post, pops, rows, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _log_sharded(label, res, ms_step):
+    for k, v in res["kernel_ms"].items():
+        pl = (f", plain {res['plain_ms'][k]:.2f} ms, rel err "
+              f"{res['rel_err'][k]:.2e}" if k in res["plain_ms"] else "")
+        lib = (f", library {res['library_ms'][k]:.3f}"
+               if res["library_ms"].get(k) is not None else "")
+        log(f"  {label} {k} (shard 0): {v:.3f} ms (bound "
+            f"{res['bound_ms'][k]:.3f}, {res['bound_by'][k]}){pl}{lib}")
+    log(f"  {label} all shards: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in res["other_ms"].items())
+        + f"; exchange {res.get('exchange_bytes', 0) / 1e6:.1f} MB; "
+        f"{ms_step:.3f} ms/step")
+
+
+def phase_sharded_main(bw, start):
+    """5b, ek-pnp-thermal: slab 4 and pencil 2x2 from phase 5's start
+    state, held to the single-device run; the slab's other routes."""
+    import dataclasses
+
+    import torch
+
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.kernels.step import multi_step
+    from ekpnp_torch.parallel.mesh import gather_state, shard_state
+
+    cfg, s0 = start
+    steps = 20
+    ref = multi_step(cfg, _clone(s0), steps)
+    out = {}
+    for mname, form in (("slab4", "collide_rows_kernel.phi_hx.halo"),
+                        ("pencil2x2", "collide_kernel.shard_x")):
+        label = f"ek-pnp-thermal {mname}"
+        mesh = _cuda_mesh(mname)
+        sh = shard_state(cfg, mesh, s0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.reset_launches()
+        sh, chunks = _sharded_chunks(cfg, mesh, sh, steps, steps, label)
+        runs = [dict(fs.launches)]
+        _want_launches(runs[0], label, **{form: steps * 4,
+                                          "stream_bc_kernel.halo": steps * 4})
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        got = gather_state(mesh, sh)
+        errs = {k: rel_err(getattr(got, k), getattr(ref, k))
+                for k in ("f", "h", "hn", "g", "phi")
+                if getattr(ref, k) is not None}
+        del got
+        log(f"{label}: {steps} steps vs one device: " + " ".join(
+            f"{k} {e:.1e}" for k, e in errs.items()))
+        if max(errs.values()) > F32_SHARDED:
+            raise SystemExit(f"chip_smoke: {label}: sharded run differs from "
+                             f"the single-device run: {errs}")
+        other = {}
+        if not mesh.pencil:
+            for sub, kw, scfg, sform in (
+                    ("phi_hx off", dict(phi_hx=False), cfg,
+                     "collide_rows_kernel.hartley_x.halo"),
+                    ("fft_method fft", {}, dataclasses.replace(
+                        cfg, run=dataclasses.replace(cfg.run,
+                                                     fft_method="fft")),
+                     "collide_kernel.halo")):
+                fs.reset_launches()
+                sh, c = _sharded_chunks(scfg, mesh, sh, 10, 10,
+                                        f"{label} {sub}", **kw)
+                runs.append(dict(fs.launches))
+                _want_launches(runs[-1], f"{label} {sub}",
+                               **{sform: 40, "stream_bc_kernel.halo": 40})
+                other[sub] = c[-1] * 1e3
+        res = time_sharded(cfg, mesh, sh, bw)
+        ms_step = chunks[-1] * 1e3
+        _log_sharded(label, res, ms_step)
+        log(f"{label}: {cfg.grid.num_nodes / (chunks[-1] * 1e6):.1f} MLUPS, "
+            f"{ms_step:.3f} ms/step ({', '.join(f'{k} {v:.3f}' for k, v in other.items())}), "
+            f"peak {peak_gb:.2f} GB")
+        out[mname] = dict(res, label=label, steps=steps, step_ms=ms_step,
+                          other_route_ms=other, launches=runs,
+                          vs_single_device=errs, peak_gb=peak_gb,
+                          mlups=cfg.grid.num_nodes / (chunks[-1] * 1e6))
+        del sh
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pod(bw):
+    """5b, the pod preset: 50 steps on slab 4, then (re-sharded) 50 on
+    pencil 2x2."""
+    import torch
+
+    import ekpnp_torch
+    from ekpnp_torch.init import initialize
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.parallel.mesh import gather_state, shard_state
+
+    cfg = ekpnp_torch.preset("pod", pb_omega=0.02)
+    t0 = time.perf_counter()
+    state, _, res = initialize(cfg, device="cuda", with_residual=True)
+    torch.cuda.synchronize()
+    log(f"  pod PB init: {time.perf_counter() - t0:.2f} s, final relative "
+        f"update {float(res):.3e}")
+    out = {}
+    for mname, form in (("slab4", "collide_rows_kernel.phi_hx.halo"),
+                        ("pencil2x2", "collide_kernel.shard_x")):
+        label = f"pod {mname}"
+        mesh = _cuda_mesh(mname)
+        sh = shard_state(cfg, mesh, state)
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.reset_launches()
+        sh, chunks = _sharded_chunks(cfg, mesh, sh, 50, 25, label)
+        counts = dict(fs.launches)
+        _want_launches(counts, label, **{form: 200,
+                                         "stream_bc_kernel.halo": 200})
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        res = time_sharded(cfg, mesh, sh, bw)
+        ms_step = chunks[-1] * 1e3
+        mlups = cfg.grid.num_nodes / (chunks[-1] * 1e6)
+        _log_sharded(label, res, ms_step)
+        log(f"{label}: {mlups:.1f} MLUPS, {ms_step:.3f} ms/step, peak "
+            f"{peak_gb:.2f} GB")
+        out[mname] = dict(res, label=label, step_ms=ms_step, mlups=mlups,
+                          chunk_ms=[c * 1e3 for c in chunks], launches=counts,
+                          peak_gb=peak_gb)
+        state = gather_state(mesh, sh)
+        del sh
+        torch.cuda.empty_cache()
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_cli():
+    """6b: the CLI on a slab-4 mesh on the card, then `merge`."""
+    import math
+
+    out = os.path.join("smoke_out", "cli_mesh")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.run(
+        [sys.executable, "-m", "ekpnp_torch", *args], cwd=here, env=env,
+        capture_output=True, text=True, timeout=300) for args in (
+            ["run", "reference", "--steps", "10", "--mesh", "slab",
+             "--mesh-devices", "4", "--outdir", out],
+            ["merge", "reference", out])]
+    secs = time.perf_counter() - t0
+    for p in procs:
+        if p.returncode != 0:
+            raise SystemExit(f"chip_smoke: CLI mesh run rc {p.returncode}:\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+    if ("Iteration: 10" not in procs[0].stdout
+            or "merged" not in procs[1].stdout):
+        raise SystemExit(f"chip_smoke: CLI mesh run: {procs[0].stdout[-2000:]}"
+                         f"\n{procs[1].stdout}")
+    with open(os.path.join(out, "series.csv")) as fh:
+        last = fh.read().splitlines()[-1].split(",")
+    if not all(math.isfinite(float(v)) for v in last):
+        raise SystemExit(f"chip_smoke: CLI mesh run: non-finite {last}")
+    zones = open(os.path.join(out, "data.dat")).read().count("ZONE T=")
+    log(f"CLI `run reference --steps 10 --mesh slab --mesh-devices 4` + "
+        f"`merge`: rc 0 in {secs:.1f} s, {zones} merged zones, last series "
+        f"row {last}")
+    return dict(seconds=secs, last_row=last, zones=zones)
 
 
 def phase_cli():
@@ -591,36 +1088,72 @@ def main():
     from ekpnp_torch.kernels.fused_step import KERNELS
 
     card, bw = phase_card()
-
     torch_setup()
-    build = phase_build()
-    worst = phase_kernels_vs_plain()
-    golden = phase_golden()
-    full, head, fft = phase_main_path(bw)
-    cli = phase_cli()
+    report = dict(card=card, hbm_bw=bw, phase_s={})
 
-    runs = (full["launches"], full["launches_phi_hx_off"], head["launches"],
-            head["launches_phi_hx_off"], fft["launches"])
+    def run(phase, fn, *args):
+        """fn(*args), its seconds logged."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        report["phase_s"][phase] = time.perf_counter() - t0
+        log(f"[phase {phase}: {report['phase_s'][phase]:.1f} s]")
+        return out
+
+    report["build"] = run("build", phase_build)
+    worst = run("kernels", phase_kernels_vs_plain)
+    report["worst_rel"] = [[*k, v] for k, v in worst.items()]
+    report["golden_rel_dev"] = run("golden", phase_golden)
+    worst_sh = run("sharded_kernels", phase_sharded_kernels_vs_plain)
+    report["sharded_worst_rel"] = [[*k, v] for k, v in worst_sh.items()]
+    report["sharded_golden_rel_dev"] = run("sharded_golden",
+                                           phase_sharded_golden)
+    full, head, fft, start = run("main", phase_main_path, bw)
+    report["runs"] = [full, head, fft]
+    report["sharded"] = run("sharded_main", phase_sharded_main, bw, start)
+    del start
+    report["pod"] = run("pod", phase_pod, bw)
+    report["cli"] = run("cli", phase_cli)
+    report["sharded_cli"] = run("sharded_cli", phase_sharded_cli)
+    report["seconds"] = time.perf_counter() - t_start
+    os.makedirs("smoke_out", exist_ok=True)
+    sharded, pod = report["sharded"], report["pod"]
+    runs = [c for r in (full, head) for c in
+            (r["launches"], r["launches_phi_hx_off"])] + [fft["launches"]]
+    runs += [c for m in sharded.values() for c in m["launches"]]
+    runs += [m["launches"] for m in pod.values()]
     kernels = []
     for k in KERNELS:
-        kernels.append({
-            "name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-            "launches": sum(c[k] for c in runs),
-            "max_abs_err": max(full["abs_err"][k], head["abs_err"][k]),
-            "ms": full["kernel_ms"][k], "plain_ms": full["plain_ms"][k],
-            "bound_ms": full["bound_ms"][k], "bound_by": full["bound_by"][k],
-            "library_ms": full["library_ms"][k],
-            "max_err_f64": worst[("float64", k)],
-            "max_err_f32": worst[("float32", k)],
-            "ms_d3q7": head["kernel_ms"][k], "plain_ms_d3q7": head["plain_ms"][k],
-            "bound_ms_d3q7": head["bound_ms"][k],
-            "library_ms_d3q7": head["library_ms"][k],
-        })
-    report = dict(card=card, hbm_bw=bw, build=build, golden_rel_dev=golden,
-                  worst_rel=[[*k, v] for k, v in worst.items()],
-                  runs=[full, head, fft], cli=cli, kernels=kernels,
-                  seconds=time.perf_counter() - t_start)
-    os.makedirs("smoke_out", exist_ok=True)
+        row = {"name": k, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[k], "launches": sum(c[k] for c in runs)}
+        if k in full["kernel_ms"]:  # single device: ek-pnp-thermal, D3Q7
+            row.update(
+                max_abs_err=max(full["abs_err"][k], head["abs_err"][k]),
+                ms=full["kernel_ms"][k], plain_ms=full["plain_ms"][k],
+                bound_ms=full["bound_ms"][k], bound_by=full["bound_by"][k],
+                library_ms=full["library_ms"][k],
+                max_err_f64=worst[("float64", k)],
+                max_err_f32=worst[("float32", k)],
+                ms_d3q7=head["kernel_ms"][k],
+                plain_ms_d3q7=head["plain_ms"][k],
+                bound_ms_d3q7=head["bound_ms"][k],
+                library_ms_d3q7=head["library_ms"][k])
+        else:  # sharded: ek-pnp-thermal shard 0, slab 4 or pencil 2x2
+            mname = "pencil2x2" if "shard_x" in k else "slab4"
+            cell = sharded[mname]
+            row.update(
+                max_abs_err=max(cell["abs_err"][k], pod[mname]["abs_err"][k]),
+                ms=cell["kernel_ms"][k],
+                plain_ms=cell["plain_ms"][k], bound_ms=cell["bound_ms"][k],
+                bound_by=cell["bound_by"][k],
+                library_ms=cell["library_ms"][k],
+                max_err_f64=worst_sh[("float64", k)],
+                max_err_f32=worst_sh[("float32", k)],
+                shard=cell["label"], ms_pod=pod[mname]["kernel_ms"][k],
+                plain_ms_pod=pod[mname]["plain_ms"][k],
+                bound_ms_pod=pod[mname]["bound_ms"][k],
+                rel_err_pod=pod[mname]["rel_err"][k])
+        kernels.append(row)
+    report["kernels"] = kernels
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=str)
     log(f"total {report['seconds']:.1f} s")

@@ -1,7 +1,7 @@
 // Fused EK-PNP-thermal LBM step for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel of ekpnp/pallas/fused_step.py (build_fused_step,
-// its `kernel` closure and the pl.pallas_call), single-device form.  One
+// its `kernel` closure and the pl.pallas_call) in its five forms.  One
 // step of every active population: fluid f, ions h / hn, temperature g.
 //
 //   collide_kernel    one thread per node (x fastest, so a warp reads
@@ -41,6 +41,26 @@
 //                     launch in place of collide_kernel; stream_bc_kernel
 //                     follows unchanged, so a step stays two launches.
 //
+// The sharded forms (the TPU kernel's halo=True, fused_step.py:240-245,
+// :516-520, and shard_x, :294-318; host side ekpnp_torch/parallel/halo.py) run
+// on one shard's local (Q, NZ, NYl, NXl) block, with the neighbours' edge
+// data in small halo buffers in place of the local wrap:
+//   - every collide form reads phi (psi_hx for FORM 2) at y = -1 and y = NYl
+//     from two rows (NZ, NXl) of the y-neighbours, and a pencil shard's
+//     plain-RHS collide reads x = -1 and x = NXl from two columns (NZ, NYl)
+//     of the x-neighbours (PhiSrc; null halos wrap, so collide_kernel and
+//     FORM 2 serve one device and shards alike, and FORM 1 is instantiated
+//     for each, PhiGlobal on one device);
+//   - stream_bc_halo_kernel pulls across a y edge from the neighbour's
+//     POST-collision edge row, exchanged after the collide and holding only
+//     the directions that pull across that edge: 9 of 27 (D3Q27), 5 of 19,
+//     1 of 7, in direction order (PostSrc).  x wraps locally; on a pencil
+//     the host code repairs the two wrap columns afterwards (fix_x_columns).
+// This is not the TPU's data flow (pre-collision 8-row halo blocks, halo
+// rows collided again, DMA-aligned): the two-launch split lets the post
+// rows travel instead, while the solve runs.  The one-device kernels keep
+// their own code where the shard's reads cost them time (stream, FORM 1).
+//
 // Bound: device-memory bytes.  The pair moves 1736 B/node per step with
 // every field on D3Q27 in f32 (collide: populations read + post written,
 // phi read, rhs written; stream: post read + populations written), 776 B
@@ -54,10 +74,20 @@
 // tiling.  On an H100 SXM (700 W) the row products run at ~6-10 TFLOP/s in
 // f32, bound by one broadcast shared-memory read per multiply-add, so the
 // phi_hx decode costs more than the solve's x stages it removes (PERF.md).
+// A shard moves the same bytes per node plus its halo: two phi rows (and
+// columns) for the collide, two post rows of 9 / 5 / 1 directions per
+// field for the stream.  The halo reads select a pointer and an index
+// (PhiSrc, pull) and the slot comes from a table (edge_slot): a first
+// version with a branch per read and a counting loop per slot had nvcc
+// still compiling after 14 minutes; this one takes about one per element
+// type.
 //
 // Plain C interface for ctypes; every entry point returns the
 // cudaGetLastError() of its launch (or -1 for an unsupported lattice pair,
-// -2 for a row-block height whose shared memory does not fit).
+// -2 for a row-block height whose shared memory does not fit, -3 for a
+// call in the other element type).  One library per element type: built
+// with -DEKPNP_REAL=float and -DEKPNP_REAL=double, two nvcc processes side
+// by side (kernels/fused_step.py build).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -175,27 +205,108 @@ struct NodeMacro {
   T Ex, Ey, Ez;          // E = -grad(phi)
 };
 
-// phi read from device memory (plain and hartley_x forms)
+// phi (or psi_hx) read from device memory (plain and hartley_x forms, and
+// FORM 2's staging).  The E stencil reads z +- 1 in range (at) and x +- 1,
+// y +- 1 across the block's edge: there a shard reads its halo -- the rows
+// ylo / yhi (NZ, NX) at y = -1 / NY, the columns xlo / xhi (NZ, NY) at
+// x = -1 / NX -- and one device, whose halo pointers are null, wraps, as
+// the plain-RHS collide always did.  Each edge read is one compare and
+// selects of the pointer and the index, so the collide stays straight-line
+// code (branches per read made nvcc's build of this file run away).
+template <typename T>
+struct PhiHalo {
+  const T* ylo;
+  const T* yhi;
+  const T* xlo;
+  const T* xhi;
+};
+
+template <typename T>
+struct PhiSrc {
+  const T* phi;
+  const T* ylo;
+  const T* yhi;
+  const T* xlo;
+  const T* xhi;
+  int ny, nx;
+  __device__ __forceinline__ PhiSrc(const T* p, const PhiHalo<T>& h, int ny_,
+                                    int nx_)
+      : phi(p), ylo(h.ylo), yhi(h.yhi), xlo(h.xlo), xhi(h.xhi), ny(ny_),
+        nx(nx_) {}
+  __device__ __forceinline__ T at(int z, int y, int x) const {
+    return ld(phi, ((int64_t)z * ny + y) * nx + x);
+  }
+  // the neighbour of (z, y, x) at y + DY (DY = -1 / +1)
+  template <int DY>
+  __device__ __forceinline__ T y_off(int z, int y, int x) const {
+    const bool edge = DY < 0 ? y == 0 : y == ny - 1;
+    const T* halo = DY < 0 ? ylo : yhi;
+    const bool use = edge && halo != nullptr;
+    const int wy = edge ? (DY < 0 ? ny - 1 : 0) : y + DY;
+    return ld(use ? halo : phi, use ? (int64_t)z * nx + x
+                                    : ((int64_t)z * ny + wy) * nx + x);
+  }
+  template <int DX>
+  __device__ __forceinline__ T x_off(int z, int y, int x) const {
+    const bool edge = DX < 0 ? x == 0 : x == nx - 1;
+    const T* halo = DX < 0 ? xlo : xhi;
+    const bool use = edge && halo != nullptr;
+    const int wx = edge ? (DX < 0 ? nx - 1 : 0) : x + DX;
+    return ld(use ? halo : phi, use ? (int64_t)z * ny + y
+                                    : ((int64_t)z * ny + y) * nx + wx);
+  }
+  // row yy in -1..NY (FORM 2's staging)
+  __device__ __forceinline__ T row(int z, int yy, int x) const {
+    return yy < 0 ? y_off<-1>(z, 0, x)
+                  : (yy >= ny ? y_off<1>(z, ny - 1, x) : at(z, yy, x));
+  }
+};
+
+// phi read from device memory on one device, periodic in x and y: the
+// hartley_x form's source there (the shard's PhiSrc, compiled into the
+// row-block kernel, cost it ~6 % on the H100, PERF.md).  Takes the
+// halo argument only to be built as PhiSrc is; it has none.
 template <typename T>
 struct PhiGlobal {
   const T* __restrict__ phi;
   int64_t plane;
-  int nx;
-  __device__ __forceinline__ T operator()(int z, int y, int x) const {
+  int ny, nx;
+  __device__ __forceinline__ PhiGlobal(const T* p, const PhiHalo<T>&, int ny_,
+                                       int nx_)
+      : phi(p), plane((int64_t)ny_ * nx_), ny(ny_), nx(nx_) {}
+  __device__ __forceinline__ T at(int z, int y, int x) const {
     return ld(phi, z * plane + (int64_t)y * nx + x);
+  }
+  template <int DY>
+  __device__ __forceinline__ T y_off(int z, int y, int x) const {
+    return at(z, DY < 0 ? (y == 0 ? ny - 1 : y - 1)
+                        : (y == ny - 1 ? 0 : y + 1), x);
+  }
+  template <int DX>
+  __device__ __forceinline__ T x_off(int z, int y, int x) const {
+    return at(z, y, DX < 0 ? (x == 0 ? nx - 1 : x - 1)
+                           : (x == nx - 1 ? 0 : x + 1));
   }
 };
 
 // phi read from the block's decoded shared-memory window (phi_hx form):
-// planes w0..w0+2, window row r holding phi row (y0 - 1 + r) mod NY.
+// planes w0..w0+2, window row r holding phi row y0 - 1 + r; x wraps (x is
+// whole wherever this form runs).
 template <typename T>
 struct PhiWindow {
   const T* win;
-  int w0, y0, ny, nx, wrows;
-  __device__ __forceinline__ T operator()(int z, int y, int x) const {
-    int r = y - y0 + 1;
-    if (r < 0) r += ny; else if (r >= wrows) r -= ny;
-    return win[((z - w0) * wrows + r) * nx + x];
+  int w0, y0, nx, wrows;
+  __device__ __forceinline__ T at(int z, int y, int x) const {
+    return win[((z - w0) * wrows + (y - y0 + 1)) * nx + x];
+  }
+  template <int DY>
+  __device__ __forceinline__ T y_off(int z, int y, int x) const {
+    return at(z, y + DY, x);
+  }
+  template <int DX>
+  __device__ __forceinline__ T x_off(int z, int y, int x) const {
+    return at(z, y, DX < 0 ? (x == 0 ? nx - 1 : x - 1)
+                           : (x == nx - 1 ? 0 : x + 1));
   }
 };
 
@@ -221,12 +332,13 @@ __device__ __forceinline__ void node_macro(
   o.c = o.cn = o.tm = T(0);
   o.Ex = o.Ey = o.Ez = T(0);
   if (P.ek) {
-    const int xm = x == 0 ? P.nx - 1 : x - 1, xp = x == P.nx - 1 ? 0 : x + 1;
-    const int ym = y == 0 ? P.ny - 1 : y - 1, yp = y == P.ny - 1 ? 0 : y + 1;
+    // across the block's edge the phi source wraps or reads its halo
     const int zc = z == 0 ? 1 : (z == P.nz - 1 ? P.nz - 2 : z);
-    o.Ex = (phi(z, y, xm) - phi(z, y, xp)) * P.hdx;
-    o.Ey = (phi(z, ym, x) - phi(z, yp, x)) * P.hdy;
-    o.Ez = (phi(zc - 1, y, x) - phi(zc + 1, y, x)) * P.hdz;
+    o.Ex = (phi.template x_off<-1>(z, y, x)
+            - phi.template x_off<1>(z, y, x)) * P.hdx;
+    o.Ey = (phi.template y_off<-1>(z, y, x)
+            - phi.template y_off<1>(z, y, x)) * P.hdy;
+    o.Ez = (phi.at(zc - 1, y, x) - phi.at(zc + 1, y, x)) * P.hdz;
     o.c = moment0<QS>(h, N, idx);
     if (P.nspec == 2) o.cn = moment0<QS>(hn, N, idx);
     const T q = P.kappa * (o.c - o.cn);
@@ -390,13 +502,15 @@ __device__ __forceinline__ T collide_node(
   return rhs_v;
 }
 
-// Plain-RHS form: one thread per node, flat 128-thread blocks.
+// Plain-RHS form: one thread per node, flat 128-thread blocks.  `phi`
+// carries the halo rows and columns of a shard (null on one device).
 template <typename T, int QF, int QS>
 __global__ void __launch_bounds__(128) collide_kernel(
     const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
     const T* __restrict__ hn, const T* __restrict__ g,
-    const T* __restrict__ phi, T* __restrict__ pf, T* __restrict__ ph,
-    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs) {
+    const T* __restrict__ phi_, const PhiHalo<T> halo, T* __restrict__ pf,
+    T* __restrict__ ph, T* __restrict__ phn, T* __restrict__ pg,
+    T* __restrict__ rhs) {
   const int64_t plane = (int64_t)P.ny * P.nx;
   const int64_t N = plane * P.nz;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -404,8 +518,8 @@ __global__ void __launch_bounds__(128) collide_kernel(
   const int x = (int)(idx % P.nx);
   const int y = (int)((idx / P.nx) % P.ny);
   const int z = (int)(idx / plane);
-  const PhiGlobal<T> src{phi, plane, P.nx};
-  const T r = collide_node<T, QF, QS>(P, f, h, hn, g, src, pf, ph, phn, pg,
+  const PhiSrc<T> phi(phi_, halo, P.ny, P.nx);
+  const T r = collide_node<T, QF, QS>(P, f, h, hn, g, phi, pf, ph, phn, pg,
                                       z, y, x, N, idx);
   if (P.ek && z >= 1 && z <= P.nz - 2) rhs[idx - plane] = r;
 }
@@ -466,16 +580,21 @@ inline size_t rows_smem_elems(int form, int rb, int nx) {
 // FORM 2 (phi_hx, implies hartley_x): `phi` is psi_hx.  The block first
 // stages the psi rows its E stencil reads -- planes w0..w0+2 (z-1..z+1,
 // clamped to 0..2 at z = 0, where plane 1's macro is recomputed, and to
-// NZ-3..NZ-1 at the top), rows y0-1..y0+rb -- and decodes them as
+// NZ-3..NZ-1 at the top), rows y0-1..y0+rb (at most NY: the rows past the
+// tile's last one + 1 are never read) -- and decodes them as
 // psi @ H + lift(z), lift(z) = V + (V2 - V) z / (NZ-1) in double, as the
 // plain version's lifting profile.  Every node then reads phi from there.
-template <typename T, int QF, int QS, int FORM>
+// On a slab shard the rows y0-1 = -1 and NY come from psi's halo rows:
+// the decode is per row, so psi rows travel and are decoded here.
+// Src: FORM 1's phi source (PhiGlobal on one device, PhiSrc on a shard);
+// FORM 2 stages psi through PhiSrc either way.
+template <typename T, int QF, int QS, int FORM, typename Src>
 __global__ void __launch_bounds__(128) collide_rows_kernel(
     const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
     const T* __restrict__ hn, const T* __restrict__ g,
-    const T* __restrict__ phi, const T* __restrict__ H,
-    T* __restrict__ pf, T* __restrict__ ph, T* __restrict__ phn,
-    T* __restrict__ pg, T* __restrict__ rhs, int rb) {
+    const T* __restrict__ phi_, const PhiHalo<T> halo,
+    const T* __restrict__ H, T* __restrict__ pf, T* __restrict__ ph,
+    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs, int rb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   const int nx = P.nx, ny = P.ny, nz = P.nz;
@@ -490,12 +609,11 @@ __global__ void __launch_bounds__(128) collide_rows_kernel(
   T* const stage = FORM == 2 ? sm + 3 * wrows * nx : sm;
 
   if constexpr (FORM == 2) {
+    const PhiSrc<T> phi(phi_, halo, ny, nx);
     for (int i = threadIdx.x; i < 3 * wrows * nx; i += blockDim.x) {
       const int x = i % nx, pr = i / nx;
       const int p = pr / wrows;
-      int yy = (y0 - 1 + pr % wrows) % ny;
-      if (yy < 0) yy += ny;
-      stage[i] = ld(phi, (w0 + p) * plane + (int64_t)yy * nx + x);
+      stage[i] = phi.row(w0 + p, min(y0 - 1 + pr % wrows, ny), x);
     }
     __syncthreads();
     rows_times_h<kWinRowsMax>(stage, 3 * wrows, H, nx,
@@ -513,11 +631,11 @@ __global__ void __launch_bounds__(128) collide_rows_kernel(
     const int64_t idx = z * plane + (int64_t)y * nx + x;
     T v;
     if constexpr (FORM == 2) {
-      const PhiWindow<T> src{win, w0, y0, ny, nx, wrows};
+      const PhiWindow<T> src{win, w0, y0, nx, wrows};
       v = collide_node<T, QF, QS>(P, f, h, hn, g, src, pf, ph, phn, pg, z, y,
                                   x, N, idx);
     } else {
-      const PhiGlobal<T> src{phi, plane, nx};
+      const Src src(phi_, halo, ny, nx);
       v = collide_node<T, QF, QS>(P, f, h, hn, g, src, pf, ph, phn, pg, z, y,
                                   x, N, idx);
     }
@@ -531,8 +649,54 @@ __global__ void __launch_bounds__(128) collide_rows_kernel(
   }
 }
 
-// Stream one scalar field into node (z, y, x) and apply its wall BC.
-// k: 0 = h, 1 = hn, 2 = g;  ion = the charge BC applies (k < 2).
+// Post-collision populations of one field on a shard.  lo / hi: the
+// y-neighbours' post-collision rows y = -1 / y = NY, holding only the
+// directions with ey = +1 / ey = -1 (those that pull across that edge), in
+// direction order, (n, NZ, NX) each.
+template <typename T>
+struct PostSrc {
+  const T* post;
+  const T* lo;
+  const T* hi;
+};
+
+// The halo rows of the four fields (f, h, hn, g), as the kernel takes them.
+template <typename T>
+struct PostRows {
+  const T* lo[4];
+  const T* hi[4];
+};
+
+// Slot of direction d among the directions of its y-component (ey = +1 or
+// ey = -1) in direction order: its row in a PostSrc lo / hi buffer.  An
+// opposite pair (d, d+1) shares its slot; directions with ey = 0 have
+// none (0 here, never read).  The same for every Q: D3Q19 and D3Q7 are
+// prefixes of the D3Q27 table.  A table, like dir_e: counting the earlier
+// directions in a loop made every unrolled read a nested loop.
+__device__ __forceinline__ int edge_slot(int d) {
+  const int tab[27] = {0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 2, 2, 3,
+                       3, 0, 0, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8};
+  return tab[d];
+}
+
+// A scalar field's wall node (z = 0 or NZ-1, but not the zerograd top):
+// the post-collision populations reflected at the same node.
+template <int Q, typename T>
+__device__ __forceinline__ void scalar_wall(
+    const Params<T>& P, const T* __restrict__ post, T* __restrict__ out,
+    int k, int z, int64_t N, int64_t idx) {
+  const int s = z == 0 ? 0 : 1;
+  const bool neg = P.wneg[k] != 0;
+#pragma unroll
+  for (int d = 0; d < Q; ++d) {
+    const T v = ld(post, dir_opp(d) * N + idx);
+    out[d * N + idx] = (neg ? -v : v) + P.wadd[k][s][d];
+  }
+}
+
+// One device: stream one scalar field into node (z, y, x), periodic in
+// every axis, and apply its wall BC.  k: 0 = h, 1 = hn, 2 = g;  ion = the
+// charge BC applies (k < 2).
 template <int Q, typename T>
 __device__ __forceinline__ void stream_scalar(
     const Params<T>& P, const T* __restrict__ post, T* __restrict__ out,
@@ -541,13 +705,7 @@ __device__ __forceinline__ void stream_scalar(
   const bool zg = ion && P.cbc == 2;
   const bool wall = z == 0 || z == P.nz - 1;
   if (wall && !(zg && z == P.nz - 1)) {
-    const int s = z == 0 ? 0 : 1;
-    const bool neg = P.wneg[k] != 0;
-#pragma unroll
-    for (int d = 0; d < Q; ++d) {
-      const T v = ld(post, dir_opp(d) * N + idx);
-      out[d * N + idx] = (neg ? -v : v) + P.wadd[k][s][d];
-    }
+    scalar_wall<Q>(P, post, out, k, z, N, idx);
     return;
   }
 #pragma unroll
@@ -560,6 +718,7 @@ __device__ __forceinline__ void stream_scalar(
   }
 }
 
+// One device: one thread per node.
 template <typename T, int QF, int QS>
 __global__ void __launch_bounds__(128) stream_bc_kernel(
     const Params<T> P, const T* __restrict__ pf, const T* __restrict__ ph,
@@ -587,6 +746,95 @@ __global__ void __launch_bounds__(128) stream_bc_kernel(
   if (P.thermal) stream_scalar<QS>(P, pg, g1, 2, false, z, y, x, N, idx);
 }
 
+// A shard's pull of post[d, sz, y - ey, sx], sz and sx in range.
+// INTERIOR (rows 0 < y < NY-1) and directions with ey = 0 read row y - ey,
+// in range.  EDGE (rows 0 and NY-1): row -1 or NY is the neighbour's edge
+// row, a slot of PostSrc lo / hi, picked by selects of the pointer and the
+// index, as PhiSrc does.  Only two rows of the shard take EDGE.
+template <bool EDGE, typename T>
+__device__ __forceinline__ T pull(const Params<T>& P, const PostSrc<T>& s,
+                                  int d, int sz, int y, int sx, int64_t N) {
+  const int ey = dir_e(d, 1), sy = y - ey;
+  const int64_t at = d * N + ((int64_t)sz * P.ny + sy) * P.nx + sx;
+  if (!EDGE || ey == 0) return ld(s.post, at);
+  const bool out = sy < 0 || sy >= P.ny;
+  const T* halo = sy < 0 ? s.lo : s.hi;
+  return ld(out ? halo : s.post,
+            out ? ((int64_t)edge_slot(d) * P.nz + sz) * P.nx + sx : at);
+}
+
+// A shard's scalar field at node (z, y, x): stream_scalar with the
+// neighbours' edge rows in place of the y wrap.
+template <int Q, bool EDGE, typename T>
+__device__ __forceinline__ void stream_scalar_halo(
+    const Params<T>& P, const PostSrc<T>& src, T* __restrict__ out, int k,
+    bool ion, int z, int y, int x, int64_t N, int64_t idx) {
+  const bool zg = ion && P.cbc == 2;
+  const bool wall = z == 0 || z == P.nz - 1;
+  if (wall && !(zg && z == P.nz - 1)) {
+    scalar_wall<Q>(P, src.post, out, k, z, N, idx);
+    return;
+  }
+#pragma unroll
+  for (int d = 0; d < Q; ++d) {
+    const int ex = dir_e(d, 0), ez = dir_e(d, 2);
+    int sz = z - ez;
+    if (zg && (z == P.nz - 1 || sz == P.nz - 1)) sz = P.nz - 2;
+    const int sx = (x - ex + P.nx) % P.nx;
+    out[d * N + idx] = pull<EDGE>(P, src, d, sz, y, sx, N);
+  }
+}
+
+template <bool EDGE, typename T, int QF, int QS>
+__device__ __forceinline__ void stream_node_halo(
+    const Params<T>& P, const PostSrc<T> (&src)[4], T* __restrict__ f1,
+    T* __restrict__ h1, T* __restrict__ hn1, T* __restrict__ g1, int z, int y,
+    int x, int64_t N, int64_t idx) {
+#pragma unroll
+  for (int d = 0; d < QF; ++d) {
+    const int ex = dir_e(d, 0), ez = dir_e(d, 2);
+    const int sz = (z - ez + P.nz) % P.nz;
+    const int sx = (x - ex + P.nx) % P.nx;
+    f1[d * N + idx] = pull<EDGE>(P, src[0], d, sz, y, sx, N);
+  }
+  if (P.ek) {
+    stream_scalar_halo<QS, EDGE>(P, src[1], h1, 0, true, z, y, x, N, idx);
+    if (P.nspec == 2)
+      stream_scalar_halo<QS, EDGE>(P, src[2], hn1, 1, true, z, y, x, N, idx);
+  }
+  if (P.thermal)
+    stream_scalar_halo<QS, EDGE>(P, src[3], g1, 2, false, z, y, x, N, idx);
+}
+
+// A shard: one thread per node; rows: the neighbours' post-collision edge
+// rows of each field (PostSrc lo / hi).  Its own kernel: the edge-row
+// selects, compiled into the one-device kernel, cost that ~8-12 % on the
+// H100 (PERF.md).
+template <typename T, int QF, int QS>
+__global__ void __launch_bounds__(128) stream_bc_halo_kernel(
+    const Params<T> P, const T* __restrict__ pf, const T* __restrict__ ph,
+    const T* __restrict__ phn, const T* __restrict__ pg,
+    const PostRows<T> rows, T* __restrict__ f1, T* __restrict__ h1,
+    T* __restrict__ hn1, T* __restrict__ g1) {
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const int64_t N = plane * P.nz;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= N) return;
+  const int x = (int)(idx % P.nx);
+  const int y = (int)((idx / P.nx) % P.ny);
+  const int z = (int)(idx / plane);
+  const PostSrc<T> src[4] = {{pf, rows.lo[0], rows.hi[0]},
+                             {ph, rows.lo[1], rows.hi[1]},
+                             {phn, rows.lo[2], rows.hi[2]},
+                             {pg, rows.lo[3], rows.hi[3]}};
+  if (y > 0 && y < P.ny - 1)
+    stream_node_halo<false, T, QF, QS>(P, src, f1, h1, hn1, g1, z, y, x, N,
+                                       idx);
+  else
+    stream_node_halo<true, T, QF, QS>(P, src, f1, h1, hn1, g1, z, y, x, N,
+                                      idx);
+}
+
 constexpr int kThreads = 128;
 
 inline unsigned blocks_for(const HostInts& I) {
@@ -594,29 +842,49 @@ inline unsigned blocks_for(const HostInts& I) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+// phi's halo as the host passes it: {phi, ylo, yhi, xlo, xhi}, null
+// where absent
+template <typename T>
+PhiHalo<T> make_halo(const void* const* p) {
+  return PhiHalo<T>{(const T*)p[1], (const T*)p[2], (const T*)p[3],
+                    (const T*)p[4]};
+}
+
+// the edge rows of {post, lo, hi} x {f, h, hn, g}
+template <typename T>
+PostRows<T> make_rows(const void* const* p) {
+  PostRows<T> r;
+  for (int k = 0; k < 4; ++k) {
+    r.lo[k] = (const T*)p[3 * k + 1];
+    r.hi[k] = (const T*)p[3 * k + 2];
+  }
+  return r;
+}
+
 template <typename T, int QF, int QS>
 int launch_collide(const HostInts& I, const HostConsts& C, const void* f,
                    const void* h, const void* hn, const void* g,
-                   const void* phi, void* pf, void* ph, void* phn, void* pg,
-                   void* rhs, cudaStream_t s) {
+                   const void* const* phi, void* pf, void* ph, void* phn,
+                   void* pg, void* rhs, cudaStream_t s) {
   collide_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
       make_params<T>(I, C), (const T*)f, (const T*)h, (const T*)hn,
-      (const T*)g, (const T*)phi, (T*)pf, (T*)ph, (T*)phn, (T*)pg, (T*)rhs);
+      (const T*)g, (const T*)phi[0], make_halo<T>(phi), (T*)pf, (T*)ph,
+      (T*)phn, (T*)pg, (T*)rhs);
   return (int)cudaGetLastError();
 }
 
 // Row-block launch of the x-Hartley forms, rb rows per block (the wrapper
 // picks rb, kernels/fused_step.py row_block_rows); -2 where rb is out of
 // range or its shared memory does not fit.
-template <typename T, int QF, int QS, int FORM>
+template <typename T, int QF, int QS, int FORM, typename Src>
 int launch_collide_rows(int rb, const HostInts& I, const HostConsts& C,
                         const void* f, const void* h, const void* hn,
-                        const void* g, const void* phi, const void* H,
+                        const void* g, const void* const* phi, const void* H,
                         void* pf, void* ph, void* phn, void* pg, void* rhs,
                         cudaStream_t s) {
   const size_t smem = rows_smem_elems(FORM, rb, I.nx) * sizeof(T);
   if (rb < 1 || rb > kRowsMax || smem > kSmemMax) return -2;
-  auto kern = collide_rows_kernel<T, QF, QS, FORM>;
+  auto kern = collide_rows_kernel<T, QF, QS, FORM, Src>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -625,18 +893,25 @@ int launch_collide_rows(int rb, const HostInts& I, const HostConsts& C,
   const dim3 grid((unsigned)((I.ny + rb - 1) / rb), (unsigned)I.nz);
   kern<<<grid, kThreads, smem, s>>>(
       make_params<T>(I, C), (const T*)f, (const T*)h, (const T*)hn,
-      (const T*)g, (const T*)phi, (const T*)H, (T*)pf, (T*)ph, (T*)phn,
-      (T*)pg, (T*)rhs, rb);
+      (const T*)g, (const T*)phi[0], make_halo<T>(phi), (const T*)H, (T*)pf,
+      (T*)ph, (T*)phn, (T*)pg, (T*)rhs, rb);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int QF, int QS>
-int launch_stream_bc(const HostInts& I, const HostConsts& C, const void* pf,
-                     const void* ph, const void* phn, const void* pg,
-                     void* f1, void* h1, void* hn1, void* g1, cudaStream_t s) {
-  stream_bc_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
-      make_params<T>(I, C), (const T*)pf, (const T*)ph, (const T*)phn,
-      (const T*)pg, (T*)f1, (T*)h1, (T*)hn1, (T*)g1);
+int launch_stream_bc(const HostInts& I, const HostConsts& C,
+                     const void* const* post, void* f1, void* h1, void* hn1,
+                     void* g1, cudaStream_t s) {
+  const T *pf = (const T*)post[0], *ph = (const T*)post[3],
+          *phn = (const T*)post[6], *pg = (const T*)post[9];
+  if (post[1] != nullptr)  // a shard: the f field's rows (all or none)
+    stream_bc_halo_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
+        make_params<T>(I, C), pf, ph, phn, pg, make_rows<T>(post), (T*)f1,
+        (T*)h1, (T*)hn1, (T*)g1);
+  else
+    stream_bc_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
+        make_params<T>(I, C), pf, ph, phn, pg, (T*)f1, (T*)h1, (T*)hn1,
+        (T*)g1);
   return (int)cudaGetLastError();
 }
 
@@ -646,9 +921,9 @@ int launch_stream_bc(const HostInts& I, const HostConsts& C, const void* pf,
 
 template <typename T>
 int collide_any(const HostInts& I, const HostConsts& C, const void* f,
-                const void* h, const void* hn, const void* g, const void* phi,
-                void* pf, void* ph, void* phn, void* pg, void* rhs,
-                cudaStream_t s) {
+                const void* h, const void* hn, const void* g,
+                const void* const* phi, void* pf, void* ph, void* phn,
+                void* pg, void* rhs, cudaStream_t s) {
 #define EKPNP_CASE(QF_, QS_)                                               \
   if (I.qf == QF_ && I.qs == QS_)                                          \
     return launch_collide<T, QF_, QS_>(I, C, f, h, hn, g, phi, pf, ph, phn, \
@@ -661,37 +936,46 @@ int collide_any(const HostInts& I, const HostConsts& C, const void* f,
 template <typename T>
 int collide_rows_any(int form, int rb, const HostInts& I, const HostConsts& C,
                      const void* f, const void* h, const void* hn,
-                     const void* g, const void* phi, const void* H, void* pf,
-                     void* ph, void* phn, void* pg, void* rhs,
+                     const void* g, const void* const* phi, const void* H,
+                     void* pf, void* ph, void* phn, void* pg, void* rhs,
                      cudaStream_t s) {
-#define EKPNP_CASE(QF_, QS_)                                                  \
-  if (I.qf == QF_ && I.qs == QS_)                                             \
-    return form == 2                                                          \
-               ? launch_collide_rows<T, QF_, QS_, 2>(rb, I, C, f, h, hn, g,   \
-                                                     phi, H, pf, ph, phn, pg, \
-                                                     rhs, s)                  \
-               : launch_collide_rows<T, QF_, QS_, 1>(rb, I, C, f, h, hn, g,   \
-                                                     phi, H, pf, ph, phn, pg, \
-                                                     rhs, s);
+  // a shard passes phi's halo rows
+  const bool halo = phi[1] != nullptr;
+#define EKPNP_CASE(QF_, QS_)                                                 \
+  if (I.qf == QF_ && I.qs == QS_) {                                          \
+    if (form == 2)                                                           \
+      return launch_collide_rows<T, QF_, QS_, 2, PhiSrc<T>>(                 \
+          rb, I, C, f, h, hn, g, phi, H, pf, ph, phn, pg, rhs, s);           \
+    return halo ? launch_collide_rows<T, QF_, QS_, 1, PhiSrc<T>>(            \
+                      rb, I, C, f, h, hn, g, phi, H, pf, ph, phn, pg, rhs, s) \
+                : launch_collide_rows<T, QF_, QS_, 1, PhiGlobal<T>>(         \
+                      rb, I, C, f, h, hn, g, phi, H, pf, ph, phn, pg, rhs,   \
+                      s);                                                    \
+  }
   EKPNP_LATTICE_PAIRS(EKPNP_CASE)
 #undef EKPNP_CASE
   return -1;
 }
 
 template <typename T>
-int stream_bc_any(const HostInts& I, const HostConsts& C, const void* pf,
-                  const void* ph, const void* phn, const void* pg, void* f1,
-                  void* h1, void* hn1, void* g1, cudaStream_t s) {
-#define EKPNP_CASE(QF_, QS_)                                                \
-  if (I.qf == QF_ && I.qs == QS_)                                           \
-    return launch_stream_bc<T, QF_, QS_>(I, C, pf, ph, phn, pg, f1, h1, hn1, \
-                                         g1, s);
+int stream_bc_any(const HostInts& I, const HostConsts& C,
+                  const void* const* post, void* f1, void* h1, void* hn1,
+                  void* g1, cudaStream_t s) {
+#define EKPNP_CASE(QF_, QS_)                                              \
+  if (I.qf == QF_ && I.qs == QS_)                                         \
+    return launch_stream_bc<T, QF_, QS_>(I, C, post, f1, h1, hn1, g1, s);
   EKPNP_LATTICE_PAIRS(EKPNP_CASE)
 #undef EKPNP_CASE
   return -1;
 }
 
 }  // namespace
+
+#ifndef EKPNP_REAL
+#error "build with -DEKPNP_REAL=float or -DEKPNP_REAL=double"
+#endif
+using Real = EKPNP_REAL;
+constexpr int kIsF64 = sizeof(Real) == sizeof(double);
 
 extern "C" {
 
@@ -703,48 +987,47 @@ int ekpnp_abi(int* n_ints, int* n_consts) {
   return 0;
 }
 
+// phi: {phi, ylo, yhi, xlo, xhi}, the halo entries null on one device
+// (PhiSrc); a pencil shard passes all four, a slab shard the two rows.
 int ekpnp_collide(int is_f64, const int* ints, const double* consts,
                   const void* f, const void* h, const void* hn, const void* g,
-                  const void* phi, void* pf, void* ph, void* phn, void* pg,
-                  void* rhs, void* stream) {
+                  const void* const* phi, void* pf, void* ph, void* phn,
+                  void* pg, void* rhs, void* stream) {
   const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
   const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return is_f64 ? collide_any<double>(I, C, f, h, hn, g, phi, pf, ph, phn, pg,
-                                      rhs, s)
-                : collide_any<float>(I, C, f, h, hn, g, phi, pf, ph, phn, pg,
-                                     rhs, s);
+  if (is_f64 != kIsF64) return -3;
+  return collide_any<Real>(I, C, f, h, hn, g, phi, pf, ph, phn, pg, rhs, s);
 }
 
 // form 1: hartley_x, form 2: phi_hx (`phi` is psi_hx); rb y rows per
-// block.  H: the (NX, NX) cas matrix in the tensors' type.  Returns -2 if
-// rb is out of range or its shared memory does not fit.
+// block.  H: the (NX, NX) cas matrix in the tensors' type.  phi as for
+// ekpnp_collide, with no x halo (x is whole).  Returns -2 if rb is out of
+// range or its shared memory does not fit.
 int ekpnp_collide_rows(int is_f64, int form, int rb, const int* ints,
                        const double* consts, const void* f, const void* h,
-                       const void* hn, const void* g, const void* phi,
+                       const void* hn, const void* g, const void* const* phi,
                        const void* H, void* pf, void* ph, void* phn, void* pg,
                        void* rhs, void* stream) {
   const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
   const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (form != 1 && form != 2) return -1;
-  return is_f64 ? collide_rows_any<double>(form, rb, I, C, f, h, hn, g, phi,
-                                           H, pf, ph, phn, pg, rhs, s)
-                : collide_rows_any<float>(form, rb, I, C, f, h, hn, g, phi, H,
-                                          pf, ph, phn, pg, rhs, s);
+  if (is_f64 != kIsF64) return -3;
+  return collide_rows_any<Real>(form, rb, I, C, f, h, hn, g, phi, H, pf, ph,
+                                phn, pg, rhs, s);
 }
 
+// post: {post, lo, hi} for f, h, hn, g in turn (PostSrc), lo / hi null
+// on one device.
 int ekpnp_stream_bc(int is_f64, const int* ints, const double* consts,
-                    const void* pf, const void* ph, const void* phn,
-                    const void* pg, void* f1, void* h1, void* hn1, void* g1,
-                    void* stream) {
+                    const void* const* post, void* f1, void* h1, void* hn1,
+                    void* g1, void* stream) {
   const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
   const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return is_f64 ? stream_bc_any<double>(I, C, pf, ph, phn, pg, f1, h1, hn1,
-                                        g1, s)
-                : stream_bc_any<float>(I, C, pf, ph, phn, pg, f1, h1, hn1, g1,
-                                       s);
+  if (is_f64 != kIsF64) return -3;
+  return stream_bc_any<Real>(I, C, post, f1, h1, hn1, g1, s);
 }
 
 }  // extern "C"

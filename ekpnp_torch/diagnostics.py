@@ -1,7 +1,9 @@
 """Diagnostics: ionic current, umax series, dimensionless groups, finite
 guard (port of ekpnp/diagnostics.py).  Reductions run on the state's
 device; `series_point` returns 0-d tensors so a caller fetches them with
-one host transfer."""
+one host transfer.  A sharded state (parallel/mesh.py) is reduced shard by
+shard and then over the shards: maxima exactly as on the gathered state,
+sums up to their order of summation."""
 from __future__ import annotations
 
 import torch
@@ -39,32 +41,51 @@ def velocity_magnitude_max(u):
 
 
 def _finite(state: State):
-    ok = torch.ones((), dtype=torch.bool, device=state.f.device)
-    for t in state:
-        if t is not None:
-            ok = ok & torch.all(torch.isfinite(t))
+    """All entries finite, as a 0-d tensor on the state's (first) device;
+    fields may be lists of shards."""
+    first = state.f[0] if isinstance(state.f, list) else state.f
+    ok = torch.ones((), dtype=torch.bool, device=first.device)
+    for field in state:
+        for t in field if isinstance(field, list) else [field]:
+            if t is not None:
+                ok = ok & torch.all(torch.isfinite(t)).to(first.device)
     return ok
 
 
 def check_finite(state: State) -> bool:
-    """NaN/Inf guard over every tensor of the state."""
+    """NaN/Inf guard over every tensor of the state (sharded or not)."""
     return bool(_finite(state))
 
 
-def series_point(cfg: Config, state: State):
-    """(umax_uz, umax_mag, current, mean_T, finite) as 0-d tensors."""
+def series_point(cfg: Config, state: State, mesh=None):
+    """(umax_uz, umax_mag, current, mean_T, finite) as 0-d tensors; with
+    `mesh`, of a sharded state, on its first shard's device."""
     from .ops.collide import compute_macro
     from .ops.poisson import efield
 
-    macro, _ = compute_macro(cfg, state)
-    zero = torch.zeros((), dtype=macro.rho.dtype, device=macro.rho.device)
-    um = umax(macro.u)
-    umag = velocity_magnitude_max(macro.u)
+    ek = cfg.physics.enable_ek
+    if mesh is None:
+        macro, _ = compute_macro(cfg, state)
+        parts = [(macro, efield(cfg, state.phi) if ek else None)]
+    else:
+        from .parallel.halo import shard_macros
+
+        parts = shard_macros(cfg, mesh, state)
+    dev = parts[0][0].rho.device
+    red = lambda fn: torch.stack([fn(m, E).to(dev) for m, E in parts])
+    zero = torch.zeros((), dtype=parts[0][0].rho.dtype, device=dev)
+    um = red(lambda m, E: umax(m.u)).max()
+    umag = torch.sqrt(red(lambda m, E: torch.max(torch.sum(m.u * m.u,
+                                                           dim=0))).max())
     cur = zero
-    if cfg.physics.enable_ek:
-        E = efield(cfg, state.phi)
-        cur = ionic_current(cfg, macro.charge, macro.chargen, E[2])
-    mean_t = torch.mean(macro.temp) if macro.temp is not None else zero
+    if ek:
+        cur = red(lambda m, E: ionic_current(cfg, m.charge, m.chargen,
+                                             E[2])).sum()
+    mean_t = zero
+    if cfg.physics.enable_thermal:
+        mean_t = (torch.mean(parts[0][0].temp) if mesh is None else
+                  red(lambda m, E: torch.sum(m.temp)).sum()
+                  / cfg.grid.num_nodes)
     return um, umag, cur, mean_t, _finite(state)
 
 

@@ -1,11 +1,14 @@
 """The fused LBM step on the card: hand-written CUDA kernels for Hopper.
 
 Replaces the TPU kernel `build_fused_step` of ekpnp/pallas/fused_step.py
-(its `kernel` closure and the `pl.pallas_call`), its three single-device
-forms: one step of every active population (collide, fluid bounce-back,
-periodic pull stream, scalar wall BCs, E from phi, and the Poisson RHS),
-with the RHS plain, or already transformed along x (`hartley_x`), and phi
-taken plain or as psi_hx and decoded in the kernel (`phi_hx`).
+(its `kernel` closure and the `pl.pallas_call`) in all five forms: one step
+of every active population (collide, fluid bounce-back, periodic pull
+stream, scalar wall BCs, E from phi, and the Poisson RHS), with the RHS
+plain, or already transformed along x (`hartley_x`), and phi taken plain
+or as psi_hx and decoded in the kernel (`phi_hx`); on one device, or on
+one shard of a mesh (`halo`: y-slab; `shard_x`: pencil), where the
+neighbours' edge data come in as halo tensors (`PhiHalo` for the collide,
+post-collision `rows` for the stream; parallel/halo.py exchanges them).
 
 Design (csrc/fused_step.cu): two launches per step, x fastest.  The
 collide launch writes the post-collision populations into a scratch set of
@@ -27,14 +30,15 @@ launches is the first item of the perf queue.  The x-Hartley forms add
 8-row tile) and one read of H from L2 per block and product.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` of the
-source in this checkout into `ekpnp_torch/_build/`, keyed by a hash of the
-source and flags, at first use; loaded with ctypes.  A failed build or a
-launch error raises.
+source in this checkout into `ekpnp_torch/_build/`, one library per
+element type (-DEKPNP_REAL=float / double, two nvcc processes started
+together), keyed by a hash of the source and flags, at first use; loaded
+with ctypes.  A failed build or a launch error raises.
 
 `fused_step` dispatches on the tensors' device: CUDA tensors launch the
 kernels, CPU tensors run the plain version `fused_step_reference`.  There
 is no fallback from the card to the plain version.  `launches` counts the
-launches of each kernel; it is changed nowhere else.
+launches of each kernel form; it is changed nowhere else.
 """
 from __future__ import annotations
 
@@ -51,18 +55,25 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops.poisson import charge_rhs, phi_from_psi_hx
+from ..ops.poisson import PhiHalo, charge_rhs, efield, phi_from_psi_hx
 from ..parallel.fft import _hartley_matrix, hartley_x_local
 from ..state import State
 from ..step import PostCollision, collide_and_reflect, stream_and_bcs
 
-# the collide forms (plain RHS, hartley_x, phi_hx) and the stream launch
+# the collide forms (plain RHS, hartley_x, phi_hx) and the stream launch,
+# on one device; then the same collide forms on a y-slab shard (.halo), the
+# plain-RHS collide on a pencil shard (.shard_x), and the shards' stream
+# launch (.halo: stream_bc_halo_kernel; on a pencil the wrap-column
+# repair of parallel/halo.py follows)
 KERNELS = ("collide_kernel", "collide_rows_kernel.hartley_x",
-           "collide_rows_kernel.phi_hx", "stream_bc_kernel")
+           "collide_rows_kernel.phi_hx", "stream_bc_kernel",
+           "collide_kernel.halo", "collide_rows_kernel.hartley_x.halo",
+           "collide_rows_kernel.phi_hx.halo", "collide_kernel.shard_x",
+           "stream_bc_kernel.halo")
 _COLLIDE_FORMS = {(False, False): "collide_kernel",
                   (True, False): "collide_rows_kernel.hartley_x",
                   (True, True): "collide_rows_kernel.phi_hx"}
-# launches of each kernel on the card, counted where it is launched
+# launches of each kernel form on the card, counted where it is launched
 launches = {name: 0 for name in KERNELS}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,13 +99,33 @@ _CBC = {"noflux": 0, "injection": 1, "zerograd-top": 2}
 ROWS_MAX = 8
 SMEM_MAX = 232448
 
-_lib = None
-build_info = {}  # seconds, path, log of the build this process loaded
+# the element type of each library, by the wrappers' is_f64
+REALS = {0: "float", 1: "double"}
+_libs = None
+build_info = {}  # seconds, paths, log of the build this process loaded
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+
+
+def collide_form(hartley_x: bool, phi_hx: bool,
+                 phi_halo: Optional[PhiHalo] = None) -> str:
+    """The launch-count name of a collide call."""
+    name = _COLLIDE_FORMS[(hartley_x, phi_hx)]
+    if phi_halo is None:
+        return name
+    return name + (".shard_x" if phi_halo.xlo is not None else ".halo")
+
+
+def edge_dirs(lat, sign: int, axis: int = 1):
+    """The directions of `lat` whose component along `axis` (0 = x, 1 = y)
+    is `sign`, in direction order.  Along y: those that pull across the
+    y = -1 edge (sign +1) or the y = NY edge (sign -1), the rows a shard's
+    stream takes from its neighbours (the kernel's edge_slot table follows
+    this order)."""
+    return [d for d in range(lat.Q) if int(lat.E[d][axis]) == sign]
 
 
 # ---------------------------------------------------------------------------
@@ -112,62 +143,88 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> str:
+def library_path(real: str) -> str:
     with open(SOURCE, "rb") as fh:
         src = fh.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"fused_step_{key}.so")
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS + [real]).encode())
+    return os.path.join(BUILD_DIR, f"fused_step_{real}_{key.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the kernel library unless this source's build exists;
-    returns its path.  Raises with nvcc's output on failure."""
-    path = library_path()
-    if os.path.exists(path):
-        build_info.update(path=path, seconds=0.0, log="(cached build)")
-        return path
+def build() -> dict:
+    """Compile the kernel libraries (f32 and f64, one nvcc each, started
+    together) unless this source's builds exist; returns {is_f64: path}.
+    Raises with nvcc's output on failure."""
+    paths = {k: library_path(real) for k, real in REALS.items()}
+    todo = [k for k, path in paths.items() if not os.path.exists(path)]
+    if not todo:
+        build_info.update(paths=paths, seconds=0.0, log="(cached build)")
+        return paths
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmps, procs = {}, {}
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, path)
+        for k in todo:
+            fd, tmps[k] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            log = open(tmps[k] + ".log", "w+")
+            procs[k] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, f"-DEKPNP_REAL={REALS[k]}", "-o",
+                 tmps[k], SOURCE], stdout=log, stderr=subprocess.STDOUT), log)
+        logs = {}
+        for k, (proc, log) in procs.items():
+            proc.wait()
+            log.seek(0)
+            logs[k] = log.read()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc ({REALS[k]}) failed "
+                                   f"({proc.returncode}):\n{logs[k]}")
+        for k in todo:
+            os.replace(tmps[k], paths[k])
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_info.update(path=path, seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
-    return path
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        for tmp in tmps.values():
+            for f in (tmp, tmp + ".log"):
+                if os.path.exists(f):
+                    os.remove(f)
+    build_info.update(paths=paths, seconds=time.perf_counter() - t0,
+                      log="".join(logs.values()))
+    return paths
 
 
 def _load():
-    """The kernel library, built and loaded at first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(build())
+    """The kernel libraries {is_f64: lib}, built and loaded at first use."""
+    global _libs
+    if _libs is not None:
+        return _libs
     vp, ip, ci = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int
-    lib.ekpnp_abi.argtypes = [ip, ip]
-    lib.ekpnp_abi.restype = ci
-    lib.ekpnp_collide.argtypes = [ci, vp, vp] + [vp] * 10 + [vp]
-    lib.ekpnp_collide.restype = ci
-    lib.ekpnp_collide_rows.argtypes = [ci, ci, ci, vp, vp] + [vp] * 11 + [vp]
-    lib.ekpnp_collide_rows.restype = ci
-    lib.ekpnp_stream_bc.argtypes = [ci, vp, vp] + [vp] * 8 + [vp]
-    lib.ekpnp_stream_bc.restype = ci
-    n_i, n_c = ctypes.c_int(), ctypes.c_int()
-    lib.ekpnp_abi(ctypes.byref(n_i), ctypes.byref(n_c))
     want = (len(_INTS), len(_SCALARS) + 27 * len(_ARRAYS27) + 2 * 3 * 27)
-    if (n_i.value, n_c.value) != want:
-        raise RuntimeError(f"kernel constant blocks {(n_i.value, n_c.value)}"
-                           f" != Python packing {want}")
-    _lib = lib
-    return lib
+    libs = {}
+    for k, path in build().items():
+        lib = ctypes.CDLL(path)
+        lib.ekpnp_abi.argtypes = [ip, ip]
+        lib.ekpnp_abi.restype = ci
+        # pointers: f, h, hn, g, phi + halo (array), [H], post x 4, [rhs];
+        # stream_bc: {post, lo, hi} x 4 (array), out x 4
+        lib.ekpnp_collide.argtypes = [ci, vp, vp] + [vp] * 10 + [vp]
+        lib.ekpnp_collide.restype = ci
+        lib.ekpnp_collide_rows.argtypes = ([ci, ci, ci, vp, vp] + [vp] * 11
+                                           + [vp])
+        lib.ekpnp_collide_rows.restype = ci
+        lib.ekpnp_stream_bc.argtypes = [ci, vp, vp] + [vp] * 5 + [vp]
+        lib.ekpnp_stream_bc.restype = ci
+        n_i, n_c = ctypes.c_int(), ctypes.c_int()
+        lib.ekpnp_abi(ctypes.byref(n_i), ctypes.byref(n_c))
+        if (n_i.value, n_c.value) != want:
+            raise RuntimeError(f"kernel constant blocks {(n_i.value, n_c.value)}"
+                               f" != Python packing {want}")
+        libs[k] = lib
+    _libs = libs
+    return libs
 
 
 # ---------------------------------------------------------------------------
@@ -277,16 +334,24 @@ def row_block_rows(nx: int, itemsize: int, phi_hx: bool) -> int:
 # ---------------------------------------------------------------------------
 
 def collide_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None, *,
-                      hartley_x: Optional[bool] = None, phi_hx: bool = False):
+                      hartley_x: Optional[bool] = None, phi_hx: bool = False,
+                      phi_halo: Optional[PhiHalo] = None):
     """Plain version of the collide launch: (post_f, post_h, post_hn,
     post_g, rhs); post_f holds the reflected pre-collision walls.
     hartley_x: rhs is the plain RHS times H along x.  phi_hx: `phi` is
-    psi_hx, decoded with `phi_from_psi_hx` first."""
+    psi_hx, decoded with `phi_from_psi_hx` first (its halo rows too).
+    phi_halo: a shard's halo; E reads it in place of the local wrap."""
     hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
     if phi_hx:
         phi = phi_from_psi_hx(cfg, phi)
+        if phi_halo is not None:
+            row = lambda r: phi_from_psi_hx(cfg, r[:, None])[:, 0]
+            phi_halo = phi_halo._replace(ylo=row(phi_halo.ylo),
+                                         yhi=row(phi_halo.yhi))
     state = State(f=f, h=h, hn=hn, g=g, phi=phi, t=f.new_zeros(()))
-    post, macro = collide_and_reflect(cfg, state)
+    E = (efield(cfg, phi, phi_halo)
+         if phi_halo is not None and cfg.physics.enable_ek else None)
+    post, macro = collide_and_reflect(cfg, state, E=E)
     rhs = (charge_rhs(cfg, macro.charge, macro.chargen)
            if cfg.physics.enable_ek else None)
     if hartley_x:
@@ -294,15 +359,38 @@ def collide_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None, *,
     return post.f, post.h, post.hn, post.g, rhs
 
 
-def stream_bc_reference(cfg: Config, pf, ph=None, phn=None, pg=None):
-    """Plain version of stream_bc_kernel: (f1, h1, hn1, g1)."""
-    return stream_and_bcs(cfg, PostCollision(f=pf, h=ph, hn=phn, g=pg))
+def _pad_rows(lat, post, lo, hi):
+    """post (Q, NZ, NY, NX) with the neighbours' rows as rows -1 and NY:
+    (Q, NZ, NY+2, NX), the directions that do not pull across an edge
+    zero there (nothing reads them)."""
+    q, nz, _, nx = post.shape
+    edge = lambda rows, ey: post.new_zeros((q, nz, nx)).index_copy_(
+        0, torch.tensor(edge_dirs(lat, ey), device=post.device), rows)
+    return torch.cat([edge(lo, 1)[:, :, None], post, edge(hi, -1)[:, :, None]],
+                     dim=2)
+
+
+def stream_bc_reference(cfg: Config, pf, ph=None, phn=None, pg=None,
+                        rows=None):
+    """Plain version of stream_bc_kernel: (f1, h1, hn1, g1).  rows: on a
+    shard, the (lo, hi) post-collision edge rows of each field (f, h, hn,
+    g; see stream_bc); the stream runs on the padded block, whose inner
+    rows need no wrap, and keeps them."""
+    post = PostCollision(f=pf, h=ph, hn=phn, g=pg)
+    if rows is None:
+        return stream_and_bcs(cfg, post)
+    lats = (cfg.lattice,) + (cfg.scalar_lat,) * 3
+    padded = PostCollision(*(None if a is None else _pad_rows(lat, a, *r)
+                             for a, lat, r in zip(post, lats, rows)))
+    return tuple(None if a is None else a[:, :, 1:-1].contiguous()
+                 for a in stream_and_bcs(cfg, padded))
 
 
 def fused_step_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None,
                          *, hartley_x: Optional[bool] = None,
                          phi_hx: bool = False):
-    """Plain version of the fused step: (f1, h1, hn1, g1, rhs)."""
+    """Plain version of the fused step on one device: (f1, h1, hn1, g1,
+    rhs)."""
     pf, ph, phn, pg, rhs = collide_reference(cfg, f, h, hn, g, phi,
                                              hartley_x=hartley_x,
                                              phi_hx=phi_hx)
@@ -329,6 +417,17 @@ def _fields(cfg: Config, with_phi: bool = True):
     return out
 
 
+def _check_tensor(name, t, shape, device, dtype):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"fused_step: {name!r} has shape {tuple(t.shape)},"
+                         f" wants {tuple(shape)}")
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"fused_step: {name!r} is {t.dtype} on {t.device},"
+                         f" wants {dtype} on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"fused_step: {name!r} is not contiguous")
+
+
 def _check(cfg: Config, tensors: dict, device, dtype):
     """Every tensor this config needs is present, of its shape, dtype and
     device, and contiguous; no inactive field is passed.  `phi` is checked
@@ -341,22 +440,59 @@ def _check(cfg: Config, tensors: dict, device, dtype):
         t = tensors.get(name)
         if t is None:
             raise ValueError(f"fused_step: {name!r} is required by this config")
-        shape = g.shape if q is None else (q,) + g.shape
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_step: {name!r} has shape {tuple(t.shape)},"
-                             f" wants {shape}")
-        if t.device != device or t.dtype != dtype:
-            raise ValueError(f"fused_step: {name!r} is {t.dtype} on {t.device},"
-                             f" wants {dtype} on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_step: {name!r} is not contiguous")
+        _check_tensor(name, t, g.shape if q is None else (q,) + g.shape,
+                      device, dtype)
     for name in tensors:
         if tensors[name] is not None and name not in want:
             raise ValueError(f"fused_step: {name!r} is not active in this config")
 
 
+def _check_phi_halo(cfg: Config, halo: Optional[PhiHalo], hartley_x: bool,
+                    device, dtype):
+    """A shard's phi halo: rows (NZ, NX) always, columns (NZ, NY) on a
+    pencil, where the x-Hartley forms cannot run (they need x whole)."""
+    if halo is None:
+        return
+    if not cfg.physics.enable_ek:
+        raise ValueError("fused_step: phi_halo without EK")
+    nz, ny, nx = cfg.grid.shape
+    for name in ("ylo", "yhi"):
+        _check_tensor(name, getattr(halo, name), (nz, nx), device, dtype)
+    if (halo.xlo is None) != (halo.xhi is None):
+        raise ValueError("fused_step: phi_halo needs both x columns or none")
+    if halo.xlo is not None:
+        if hartley_x:
+            raise ValueError("fused_step: the x-Hartley forms need x whole; "
+                             "a pencil shard (x halo) takes the plain RHS")
+        for name in ("xlo", "xhi"):
+            _check_tensor(name, getattr(halo, name), (nz, ny), device, dtype)
+
+
+def _check_rows(cfg: Config, rows, pops, device, dtype):
+    """A shard's post-collision edge rows: (lo, hi) per active field, of
+    shape (directions with ey = +1 / -1, NZ, NX)."""
+    if rows is None:
+        return
+    nz, _, nx = cfg.grid.shape
+    lats = (cfg.lattice,) + (cfg.scalar_lat,) * 3
+    for name, a, lat, r in zip(("f", "h", "hn", "g"), pops, lats, rows):
+        if (a is None) != (r is None):
+            raise ValueError(f"fused_step: rows of {name!r} do not match "
+                             f"its field")
+        if a is None:
+            continue
+        for side, t, ey in (("lo", r[0], 1), ("hi", r[1], -1)):
+            _check_tensor(f"{name} {side} row", t,
+                          (len(edge_dirs(lat, ey)), nz, nx), device, dtype)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _ptrs(*ts):
+    """A C array of the tensors' device pointers (NULL for None)."""
+    return (ctypes.c_void_p * len(ts))(*map(_ptr, ts))
 
 
 def _empty_like_fields(cfg, like):
@@ -383,32 +519,37 @@ def _prep(cfg: Config, tensors: dict, like):
     if like.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"fused_step: unsupported dtype {like.dtype}")
     _check(cfg, tensors, like.device, like.dtype)
-    lib = _load()
+    is_f64 = int(like.dtype == torch.float64)
     ints, consts = pack_constants(cfg)
-    return (lib, ints, consts, int(like.dtype == torch.float64),
+    return (_load()[is_f64], ints, consts, is_f64,
             torch.cuda.current_stream(like.device).cuda_stream)
 
 
 def collide(cfg: Config, f, h=None, hn=None, g=None, phi=None, post=None, *,
-            hartley_x: Optional[bool] = None, phi_hx: bool = False):
+            hartley_x: Optional[bool] = None, phi_hx: bool = False,
+            phi_halo: Optional[PhiHalo] = None):
     """Collide + fluid bounce-back + RHS: (post_f, post_h, post_hn, post_g,
     rhs).  The form follows `resolve_hartley_x`: the plain RHS
     (collide_kernel), rhs @ H (hartley_x) or, with `phi` holding psi_hx,
-    phi decoded in the kernel (phi_hx).  CUDA tensors launch that form's
-    kernel, CPU tensors run `collide_reference`.  `post` may hold a
+    phi decoded in the kernel (phi_hx).  On a shard (`cfg` its local
+    grid), `phi_halo` holds the neighbours' rows of phi (psi_hx) and, on a
+    pencil, columns: the .halo / .shard_x forms.  CUDA tensors launch that
+    form's kernel, CPU tensors run `collide_reference`.  `post` may hold a
     preallocated population set."""
     hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
+    _check_phi_halo(cfg, phi_halo, hartley_x, f.device, f.dtype)
     if f.device.type == "cpu":
         _check(cfg, dict(f=f, h=h, hn=hn, g=g, phi=phi), f.device, f.dtype)
         return collide_reference(cfg, f, h, hn, g, phi, hartley_x=hartley_x,
-                                 phi_hx=phi_hx)
+                                 phi_hx=phi_hx, phi_halo=phi_halo)
     lib, ints, consts, is_f64, stream = _prep(
         cfg, dict(f=f, h=h, hn=hn, g=g, phi=phi), f)
     post = post if post is not None else _empty_like_fields(cfg, f)
     rhs = (torch.empty((cfg.grid.nz - 2,) + cfg.grid.shape[1:], dtype=f.dtype,
                        device=f.device) if cfg.physics.enable_ek else None)
-    name = _COLLIDE_FORMS[(hartley_x, phi_hx)]
-    ins = tuple(map(_ptr, (f, h, hn, g, phi)))
+    name = collide_form(hartley_x, phi_hx, phi_halo)
+    halo = phi_halo if phi_halo is not None else PhiHalo(None, None)
+    ins = (*map(_ptr, (f, h, hn, g)), _ptrs(phi, *halo))
     outs = (*map(_ptr, post), _ptr(rhs))
     with torch.cuda.device(f.device):
         if hartley_x:
@@ -423,21 +564,32 @@ def collide(cfg: Config, f, h=None, hn=None, g=None, phi=None, post=None, *,
     return (*post, rhs)
 
 
-def stream_bc(cfg: Config, pf, ph=None, phn=None, pg=None, out=None):
-    """Pull stream + scalar wall BCs: (f1, h1, hn1, g1).  CUDA tensors
-    launch stream_bc_kernel, CPU tensors run `stream_bc_reference`.  `out`
-    may hold a preallocated population set (not aliasing the inputs)."""
+def stream_bc(cfg: Config, pf, ph=None, phn=None, pg=None, out=None,
+              rows=None):
+    """Pull stream + scalar wall BCs: (f1, h1, hn1, g1).  On a shard,
+    `rows` holds one (lo, hi) pair per field (f, h, hn, g; None where
+    inactive): the y-neighbours' post-collision rows y = -1 / y = NY, of
+    the directions `edge_dirs(lat, +1)` / `edge_dirs(lat, -1)` only,
+    (n, NZ, NX) each: the .halo form.  x wraps locally either way.  CUDA
+    tensors launch stream_bc_kernel, CPU tensors run
+    `stream_bc_reference`.  `out` may hold a preallocated population set
+    (not aliasing the inputs)."""
+    pops = (pf, ph, phn, pg)
+    _check_rows(cfg, rows, pops, pf.device, pf.dtype)
     if pf.device.type == "cpu":
         _check(cfg, dict(f=pf, h=ph, hn=phn, g=pg), pf.device,
                pf.dtype)
-        return stream_bc_reference(cfg, pf, ph, phn, pg)
+        return stream_bc_reference(cfg, pf, ph, phn, pg, rows=rows)
     lib, ints, consts, is_f64, stream = _prep(
         cfg, dict(f=pf, h=ph, hn=phn, g=pg), pf)
     out = out if out is not None else _empty_like_fields(cfg, pf)
+    rows = rows if rows is not None else (None,) * 4
+    srcs = [t for a, r in zip(pops, rows)
+            for t in (a, *(r if r is not None else (None, None)))]
+    name = "stream_bc_kernel" if rows[0] is None else "stream_bc_kernel.halo"
     with torch.cuda.device(pf.device):
-        _launch(lib.ekpnp_stream_bc, "stream_bc_kernel", is_f64,
-                ints.ctypes.data, consts.ctypes.data,
-                *map(_ptr, (pf, ph, phn, pg)), *map(_ptr, out), stream)
+        _launch(lib.ekpnp_stream_bc, name, is_f64, ints.ctypes.data,
+                consts.ctypes.data, _ptrs(*srcs), *map(_ptr, out), stream)
     return out
 
 

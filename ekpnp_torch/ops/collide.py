@@ -48,16 +48,17 @@ def body_force(cfg: Config, charge, chargen, temp, E, like):
     return torch.stack([fx, fy, fz])
 
 
-def perturbation_velocity(cfg: Config, dtype, device):
+def perturbation_velocity(cfg: Config, dtype, device, origin=(0, 0)):
     """Convection-roll seeding pattern ("square" as in the reference,
     dimensional coordinates inside the trigonometric arguments; "hexagon"
-    with the corrected, divergence-free algebra)."""
+    with the corrected, divergence-free algebra).  On a shard, `origin` is
+    the global (y, x) of its first node."""
     g = cfg.grid
     LL = cfg.run.LL
     two_pi = 2.0 * math.pi
-    ar = lambda n: torch.arange(n, dtype=dtype, device=device)
-    xx = ar(g.nx)[None, None, :] * g.dx
-    yy = ar(g.ny)[None, :, None] * g.dy
+    ar = lambda n, o=0: torch.arange(o, o + n, dtype=dtype, device=device)
+    xx = ar(g.nx, origin[1])[None, None, :] * g.dx
+    yy = ar(g.ny, origin[0])[None, :, None] * g.dy
     zz = (ar(g.nz)[:, None, None] - 0.5) * g.dz
     pattern = cfg.run.perturb_pattern
     if pattern == "square":
@@ -125,9 +126,11 @@ def _trt_update(lat, pops, eq, om_plus_dt, om_minus_dt, source=None, dt=None):
     return out
 
 
-def compute_macro(cfg: Config, state: State, perturb: bool = False, E=None):
+def compute_macro(cfg: Config, state: State, perturb: bool = False, E=None,
+                  origin=(0, 0)):
     """Macroscopic fields and body force from the pre-collision
-    populations.  Returns (Macro, F)."""
+    populations.  Returns (Macro, F).  E: the field where the caller has
+    it (a shard's, from its halo); `origin`: see perturbation_velocity."""
     lat = cfg.lattice
     p = cfg.physics
     dt = p.dt(cfg.grid.dx)
@@ -149,15 +152,17 @@ def compute_macro(cfg: Config, state: State, perturb: bool = False, E=None):
     numer = mom + (0.5 * dt) * F
     u = numer / rho[None]
     if perturb:
-        u = perturbation_velocity(cfg, rho.dtype, rho.device)
+        u = perturbation_velocity(cfg, rho.dtype, rho.device, origin)
     else:
         u[:, 0] = -numer[:, 1] / rho[0][None]
     return Macro(rho=rho, u=u, charge=charge, chargen=chargen, temp=temp), F
 
 
-def collide(cfg: Config, state: State, perturb: bool = False):
+def collide(cfg: Config, state: State, perturb: bool = False, E=None,
+            origin=(0, 0)):
     """One TRT collision of all active populations; returns
-    (PostCollision, Macro).  The wall handling lives in boundary.py."""
+    (PostCollision, Macro).  The wall handling lives in boundary.py.  E
+    and `origin` as for compute_macro."""
     lat = cfg.lattice
     lat_s = cfg.scalar_lat
     p = cfg.physics
@@ -165,8 +170,9 @@ def collide(cfg: Config, state: State, perturb: bool = False):
     cs2, cs2_s, cfl = cfg.cs2, cfg.cs2_s, p.cfl
     om = cfg.omegas()
 
-    E = efield(cfg, state.phi) if p.enable_ek else None
-    macro, F = compute_macro(cfg, state, perturb, E=E)
+    if p.enable_ek and E is None:
+        E = efield(cfg, state.phi)
+    macro, F = compute_macro(cfg, state, perturb, E=E, origin=origin)
     rho, u = macro.rho, macro.u
     charge, chargen, temp = macro.charge, macro.chargen, macro.temp
 

@@ -15,6 +15,12 @@ Math, identical to the JAX package's:
     result in x-Hartley space (psi_hx), which the next step's kernel
     decodes (`phi_from_psi_hx` / `psi_hx_from_phi` are the codec).
 
+Sharded runs (ekpnp_torch/parallel): every solve takes `mesh`; its fields
+are then lists of per-shard blocks in mesh order, laid out as the state's
+phi (z whole, y and x cut by the mesh), and the (y, x) stages run
+distributed (parallel/fft.py).  The z stages, the symbol and the lifting
+are per shard.  The psi_hx codec needs x whole: slab meshes only.
+
 Dispatch of fft_method="auto" follows the tensor's device: the CPU takes
 the odd-extension FFT (the golden values rely on it), the card takes the
 DST/Hartley matrix-product form.  The solve is plain tensor code: in the
@@ -23,11 +29,39 @@ JAX package it is XLA code, not a Pallas kernel.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
+
+
+def _shards(a, mesh):
+    """The blocks of a field: the list itself on a mesh, [a] without."""
+    return a if mesh is not None else [a]
+
+
+def _unshards(blocks, mesh):
+    return blocks if mesh is not None else blocks[0]
+
+
+def _blocks(cfg: Config, mesh):
+    """(y0, ny, x0, nx) of each block (the whole grid without a mesh)."""
+    if mesh is None:
+        return [(0, cfg.grid.ny, 0, cfg.grid.nx)]
+    return [mesh.block(cfg, i) for i in range(mesh.size)]
+
+
+def _xy(fn, blocks, mesh, **kw):
+    """A (y, x) transform: distributed over the mesh, or on the one block."""
+    return fn(blocks, mesh, **kw) if mesh is not None else [fn(blocks[0], **kw)]
+
+
+def _x_whole(mesh, what: str):
+    if mesh is not None and mesh.pencil:
+        raise ValueError(f"{what} needs x whole on every shard: slab meshes "
+                         f"only (a pencil cuts x)")
 
 
 def wavenumbers(cfg: Config, dtype=np.float64):
@@ -80,10 +114,14 @@ def charge_rhs(cfg: Config, charge, chargen):
 
 @lru_cache(maxsize=None)
 def _scaled_inv_symbol(cfg: Config, dtype: torch.dtype, device: torch.device,
-                       extra_scale: float):
-    """-extra_scale / mu on the DST modes m = 1..NZ-2, (NZ-2, NY, NX)."""
+                       extra_scale: float, block=None):
+    """-extra_scale / mu on the DST modes m = 1..NZ-2, (NZ-2, NY, NX); on a
+    shard its block (y0, ny, x0, nx) alone, the same values."""
     g = cfg.grid
     kx, ky, _ = wavenumbers(cfg, np.float64)
+    if block is not None:
+        y0, nyl, x0, nxl = block
+        ky, kx = ky[y0:y0 + nyl], kx[x0:x0 + nxl]
     m = np.arange(1, g.nz - 1, dtype=np.float64)
     sz = (4.0 / g.dz**2) * np.sin(np.pi * m / g.ne) ** 2
     to = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
@@ -103,18 +141,29 @@ def lifting_profile(cfg: Config, dtype: torch.dtype, device: torch.device):
     return torch.as_tensor(prof).to(device=device, dtype=dtype)[:, None, None]
 
 
-def _inv_symbol(cfg: Config, like):
-    """-1/mu with the combined inverse scale of the DST-I (4/NE) and the
-    Hartley/DFT (1/(NY*NX)) stages folded in."""
+def _inv_symbols(cfg: Config, blocks, mesh):
+    """-1/mu of each block, with the combined inverse scale of the DST-I
+    (4/NE) and the Hartley/DFT (1/(NY*NX)) stages folded in."""
     g = cfg.grid
-    return _scaled_inv_symbol(cfg, like.dtype, like.device,
-                              4.0 / (g.ne * g.ny * g.nx))
+    scale = 4.0 / (g.ne * g.ny * g.nx)
+    if mesh is None:
+        return [_scaled_inv_symbol(cfg, blocks[0].dtype, blocks[0].device,
+                                   scale)]
+    return [_scaled_inv_symbol(cfg, b.dtype, b.device, scale, blk)
+            for b, blk in zip(blocks, _blocks(cfg, mesh))]
 
 
-def poisson_phi_from_rhs(cfg: Config, rhs, rhs_hx: bool = False):
+def _pin_plates(cfg: Config, phi):
+    phi[0] = cfg.physics.voltage
+    phi[-1] = cfg.physics.voltage2
+    return phi
+
+
+def poisson_phi_from_rhs(cfg: Config, rhs, mesh=None, rhs_hx: bool = False):
     """phi (NZ, NY, NX) from the interior RHS rows z=1..NZ-2 (what the
     fused step emits).  fft_method "fft" runs the x, y stages by FFT;
-    every other value by the real Hartley matrices.
+    every other value by the real Hartley matrices.  With `mesh`, `rhs`
+    and the result are lists of shards.
 
     rhs_hx=True: the RHS arrives already transformed along x (the fused
     step's hartley_x form); the separable stages commute, so the solve
@@ -123,91 +172,114 @@ def poisson_phi_from_rhs(cfg: Config, rhs, rhs_hx: bool = False):
                                 hartley_x_local, hartley_y)
 
     g = cfg.grid
-    p = cfg.physics
-    dtype = rhs.dtype
     if rhs_hx and cfg.run.fft_method == "fft":
         raise ValueError("rhs_hx RHS is Hartley-space; fft_method='fft' "
                          "cannot consume it")
-    inv_sym = _inv_symbol(cfg, rhs)
-    s_z = dst_z(rhs)
     if rhs_hx:
-        back = hartley_x_local(hartley_y(hartley_y(s_z) * inv_sym))
+        _x_whole(mesh, "rhs_hx")
+    blocks = _shards(rhs, mesh)
+    dtype = blocks[0].dtype
+    inv = _inv_symbols(cfg, blocks, mesh)
+    s_z = [dst_z(b) for b in blocks]
+    mul = lambda a: [x * m for x, m in zip(a, inv)]
+    if rhs_hx:
+        back = [hartley_x_local(b)
+                for b in _xy(hartley_y, mul(_xy(hartley_y, s_z, mesh)), mesh)]
     elif cfg.run.fft_method != "fft":
-        back = hartley2_xy(hartley2_xy(s_z) * inv_sym)
+        back = _xy(hartley2_xy, mul(_xy(hartley2_xy, s_z, mesh)), mesh)
     else:
-        back = fft2_xy(fft2_xy(s_z) * inv_sym, inverse=True).real.to(dtype) \
-            * float(g.ny * g.nx)
-    phi = dst_z_padded(back) + lifting_profile(cfg, dtype, rhs.device)
-    phi[0] = p.voltage
-    phi[-1] = p.voltage2
-    return phi
+        back = [b.real.to(dtype) * float(g.ny * g.nx) for b in
+                _xy(fft2_xy, mul(_xy(fft2_xy, s_z, mesh)), mesh,
+                    inverse=True)]
+    return _unshards([_pin_plates(cfg, dst_z_padded(b)
+                                  + lifting_profile(cfg, dtype, b.device))
+                      for b in back], mesh)
 
 
-def poisson_psi_hx_from_rhs(cfg: Config, rhs_hx):
+def poisson_psi_hx_from_rhs(cfg: Config, rhs_hx, mesh=None):
     """The solve with neither x stage: x-Hartley RHS in (hartley_x),
     x-Hartley potential psi_hx (NZ, NY, NX) out, its wall rows exactly zero
     (dst_z_padded emits them), with phi = H_x(psi_hx) + lifting
     (phi_from_psi_hx; the fused step's phi_hx form decodes it in the
-    kernel)."""
+    kernel).  With `mesh`, lists of shards."""
     from ..parallel.fft import dst_z, dst_z_padded, hartley_y
 
     if cfg.run.fft_method == "fft":
         raise ValueError("psi_hx solve requires the Hartley (matmul) path")
-    spec = hartley_y(dst_z(rhs_hx)) * _inv_symbol(cfg, rhs_hx)
-    return dst_z_padded(hartley_y(spec))
+    blocks = _shards(rhs_hx, mesh)
+    inv = _inv_symbols(cfg, blocks, mesh)
+    spec = [x * m for x, m in
+            zip(_xy(hartley_y, [dst_z(b) for b in blocks], mesh), inv)]
+    return _unshards([dst_z_padded(b) for b in _xy(hartley_y, spec, mesh)],
+                     mesh)
 
 
-def phi_from_psi_hx(cfg: Config, psi):
+def phi_from_psi_hx(cfg: Config, psi, mesh=None):
     """Decode the x-Hartley potential: phi = H_x(psi) + lifting.  The wall
-    rows come out voltage / voltage2 (psi's wall rows are zero)."""
+    rows come out voltage / voltage2 (psi's wall rows are zero).  With a
+    (slab) `mesh`, per shard."""
     from ..parallel.fft import hartley_x_local
 
-    return hartley_x_local(psi) + lifting_profile(cfg, psi.dtype, psi.device)
+    _x_whole(mesh, "the psi_hx codec")
+    return _unshards([hartley_x_local(s)
+                      + lifting_profile(cfg, s.dtype, s.device)
+                      for s in _shards(psi, mesh)], mesh)
 
 
-def psi_hx_from_phi(cfg: Config, phi):
+def psi_hx_from_phi(cfg: Config, phi, mesh=None):
     """Encode real phi into x-Hartley space: psi = H_x(phi - lifting)/NX
-    (H_x is self-inverse up to NX)."""
+    (H_x is self-inverse up to NX).  With a (slab) `mesh`, per shard."""
     from ..parallel.fft import hartley_x_local
 
-    lift = lifting_profile(cfg, phi.dtype, phi.device)
-    return hartley_x_local(phi - lift) * (1.0 / cfg.grid.nx)
+    _x_whole(mesh, "the psi_hx codec")
+    return _unshards([hartley_x_local(s - lifting_profile(cfg, s.dtype,
+                                                          s.device))
+                      * (1.0 / cfg.grid.nx)
+                      for s in _shards(phi, mesh)], mesh)
 
 
-def poisson_solve_dst(cfg: Config, charge, chargen):
+def poisson_solve_dst(cfg: Config, charge, chargen, mesh=None):
     """Reduced solve from the ion concentrations."""
-    return poisson_phi_from_rhs(cfg, charge_rhs(cfg, charge, chargen))
+    rhs = [charge_rhs(cfg, c, cn) for c, cn in
+           zip(_shards(charge, mesh), _shards(chargen, mesh))]
+    return poisson_phi_from_rhs(cfg, _unshards(rhs, mesh), mesh)
 
 
-def _poisson_phi_ext(cfg: Config, charge, chargen):
+def _poisson_phi_ext(cfg: Config, charge, chargen, mesh=None):
     """Odd-extension solve: (c+, c-) -> phi."""
     from ..parallel.fft import fft3
 
     g = cfg.grid
-    p = cfg.physics
-    dtype = charge.dtype
-    ext = odd_extension(cfg, charge, chargen)
-    mu = torch.as_tensor(minus_laplacian_symbol(cfg)).to(device=charge.device,
-                                                         dtype=dtype)
-    spec = fft3(ext) / (-mu)
-    # The DC bin of the odd-extended RHS is zero by symmetry; in f32 the
-    # +-voltage/dz^2 folds leave summation noise there that mu=1 would turn
-    # into a constant offset in phi, so it is zeroed explicitly.
-    spec[0, 0, 0] = 0.0
-    phi = fft3(spec, inverse=True)[: g.nz].real.to(dtype)
-    phi[0] = p.voltage
-    phi[-1] = p.voltage2
-    return phi
+    cs = _shards(charge, mesh)
+    dtype = cs[0].dtype
+    ext = [odd_extension(cfg, c, cn)
+           for c, cn in zip(cs, _shards(chargen, mesh))]
+    mu = minus_laplacian_symbol(cfg)
+    out = []
+    for s, (y0, nyl, x0, nxl) in zip(_xy(fft3, ext, mesh), _blocks(cfg, mesh)):
+        m = torch.as_tensor(mu[:, y0:y0 + nyl, x0:x0 + nxl]).to(
+            device=s.device, dtype=dtype)
+        s = s / (-m)
+        # The DC bin of the odd-extended RHS is zero by symmetry; in f32
+        # the +-voltage/dz^2 folds leave summation noise there that mu=1
+        # would turn into a constant offset in phi, so it is zeroed
+        # explicitly.
+        if y0 == 0 and x0 == 0:
+            s[0, 0, 0] = 0.0
+        out.append(s)
+    return _unshards([_pin_plates(cfg, p[: g.nz].real.to(dtype))
+                      for p in _xy(fft3, out, mesh, inverse=True)], mesh)
 
 
-def poisson_phi(cfg: Config, charge, chargen):
+def poisson_phi(cfg: Config, charge, chargen, mesh=None):
     """One potential solve.  "fft": the odd-extension FFT; "dst"/"matmul":
     the reduced DST/Hartley form; "auto": the FFT form for CPU tensors, the
-    reduced form on the card."""
+    reduced form on the card.  With `mesh`, lists of shards."""
     m = cfg.run.fft_method
-    if m == "fft" or (m == "auto" and charge.device.type == "cpu"):
-        return _poisson_phi_ext(cfg, charge, chargen)
-    return poisson_solve_dst(cfg, charge, chargen)
+    cpu = _shards(charge, mesh)[0].device.type == "cpu"
+    if m == "fft" or (m == "auto" and cpu):
+        return _poisson_phi_ext(cfg, charge, chargen, mesh)
+    return poisson_solve_dst(cfg, charge, chargen, mesh)
 
 
 def poisson_solve(cfg: Config, charge, chargen):
@@ -216,9 +288,36 @@ def poisson_solve(cfg: Config, charge, chargen):
     return phi, efield(cfg, phi)
 
 
-def efield(cfg: Config, phi):
+class PhiHalo(NamedTuple):
+    """The E stencil's reads off one shard of phi (NZ, NY, NX): the rows
+    y = -1 and y = NY (NZ, NX) from the y-neighbours and, on a pencil, the
+    columns x = -1 and x = NX (NZ, NY) from the x-neighbours (None where x
+    is whole)."""
+    ylo: torch.Tensor
+    yhi: torch.Tensor
+    xlo: Optional[torch.Tensor] = None
+    xhi: Optional[torch.Tensor] = None
+
+
+def pad_halo(phi, halo: PhiHalo):
+    """phi with its halo around it, (NZ, NY+2, NX[+2]); the corners, which
+    the cross-shaped stencil never reads, are zero."""
+    a = torch.cat([halo.ylo[:, None], phi, halo.yhi[:, None]], dim=1)
+    if halo.xlo is None:
+        return a
+    zero = a.new_zeros((a.shape[0], 1))
+    col = lambda c: torch.cat([zero, c, zero], dim=1)[:, :, None]
+    return torch.cat([col(halo.xlo), a, col(halo.xhi)], dim=2)
+
+
+def efield(cfg: Config, phi, halo: Optional[PhiHalo] = None):
     """E = -grad(phi) by centered differences with periodic wrap, then the
-    one-sided Ez copy at the walls.  (3, Z, Y, X)."""
+    one-sided Ez copy at the walls.  (3, Z, Y, X).  On a shard, `halo`
+    holds the neighbours' rows (and columns) the stencil reads in place of
+    the wrap."""
+    if halo is not None:
+        E = efield(cfg, pad_halo(phi, halo))[:, :, 1:-1]
+        return E[..., 1:-1] if halo.xlo is not None else E
     g = cfg.grid
 
     def grad(axis, d):

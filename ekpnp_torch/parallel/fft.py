@@ -1,5 +1,5 @@
-"""Transforms for the spectral Poisson solve, single device (port of the
-mesh-less parts of ekpnp/parallel/fft.py).
+"""Transforms for the spectral Poisson solve (port of
+ekpnp/parallel/fft.py), on one device or distributed over a mesh.
 
 Complex transforms are `torch.fft` on either device: the JAX package's
 DFT-as-matmul backend exists for the TPU, whose FFTs were slow, and is not
@@ -13,8 +13,24 @@ in full float32: the port's entry points switch TF32 off
 `hartley_y` and `hartley_x_local` are the single stages the x-Hartley
 route uses (ops/poisson.py rhs_hx / psi_hx): the fused step kernel does
 the x stages itself on the card (kernels/fused_step.py hartley_x, phi_hx),
-and these are their plain versions.  The multi-device (slab / pencil)
-forms of the JAX package are not here.
+and these are their plain versions.
+
+Distributed forms: given a mesh (parallel/mesh.py), `fft3`, `fft2_xy`,
+`hartley2_xy` and `hartley_y` take and return lists of per-shard blocks in
+the state's layout (z whole, y and x cut as the mesh cuts them).  Each 1-D
+stage runs on an axis that is whole on every shard, and all-to-all
+repartitions (parallel/collectives.py) move the cut between stages, in the
+JAX package's stage order:
+
+  slab ("y",):        (., y, .) --T(z), T(x)--> (y, ., .) --T(y)--> back
+                      (fft3); (., y, .) --T(x)--> (., ., y) --T(y)--> back
+                      (fft2_xy, hartley2_xy; hartley_y runs the y half)
+  pencil ("y", "x"):  (., y, x) --T(z)--> (x, y, .) --T(x)--> (x, ., y)
+                      --T(y)--> back (fft3); (., y, x) --> (., (y,x), .)
+                      --T(x)--> (., ., (y,x)) --T(y)--> back (fft2_xy,
+                      hartley2_xy; hartley_y the y half)
+
+`hartley_x_local` stays local: x is whole on a slab shard.
 """
 from __future__ import annotations
 
@@ -22,6 +38,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from .collectives import all_to_all
 
 # Contraction subscripts that keep the axis order: A @ H^T along x, a
 # z-batched H @ A along y, H @ A along z.
@@ -34,14 +52,80 @@ def _contract(mat, a, axis: int):
     return torch.einsum(_EINSUM_3D[axis], *args)
 
 
-def fft3(a, inverse: bool = False):
-    """3-D FFT of (NE, NY, NX) (cuFFT on the card, pocketfft on the CPU)."""
-    return (torch.fft.ifftn if inverse else torch.fft.fftn)(a, dim=(0, 1, 2))
+def _check(extent: int, n: int, axis, what: str):
+    if extent % n:
+        raise ValueError(
+            f"{what} extent {extent} must divide mesh '{axis}' size {n} for "
+            f"the pencil FFT (choose NZ = 2^k + 1 / power-of-two NX, NY)")
 
 
-def fft2_xy(a, inverse: bool = False):
-    """2-D FFT along (y, x) of (NZI, NY, NX)."""
-    return (torch.fft.ifftn if inverse else torch.fft.fftn)(a, dim=(1, 2))
+def _local(fn, blocks, axis):
+    return [fn(b, axis) for b in blocks]
+
+
+def _xy_stages(blocks, mesh, stage):
+    """stage(block, axis) along x, then y, with the mesh's repartitions
+    between (the structure of fft2_xy / hartley2_xy)."""
+    if not mesh.pencil:
+        a = _local(stage, blocks, 2)                    # x whole
+        a = all_to_all(mesh, a, "y", 2, 1)              # y -> x
+        a = _local(stage, a, 1)                         # y whole
+        return all_to_all(mesh, a, "y", 1, 2)
+    a = all_to_all(mesh, blocks, "x", 1, 2)             # (., (y,x), .)
+    a = _local(stage, a, 2)                             # x whole
+    a = all_to_all(mesh, a, ("y", "x"), 2, 1)           # (., ., (y,x))
+    a = _local(stage, a, 1)                             # y whole
+    a = all_to_all(mesh, a, ("y", "x"), 1, 2)           # (., (y,x), .)
+    return all_to_all(mesh, a, "x", 2, 1)               # (., y, x)
+
+
+def _y_stage(blocks, mesh, stage):
+    """stage(block, 1) alone, on a mesh (the y half of _xy_stages)."""
+    if not mesh.pencil:
+        a = all_to_all(mesh, blocks, "y", 2, 1)
+        return all_to_all(mesh, _local(stage, a, 1), "y", 1, 2)
+    a = all_to_all(mesh, blocks, "x", 1, 2)
+    a = all_to_all(mesh, a, ("y", "x"), 2, 1)
+    a = all_to_all(mesh, _local(stage, a, 1), ("y", "x"), 1, 2)
+    return all_to_all(mesh, a, "x", 2, 1)
+
+
+def _fft1(a, axis: int, inverse: bool = False):
+    return (torch.fft.ifft if inverse else torch.fft.fft)(a, dim=axis)
+
+
+def fft3(a, mesh=None, inverse: bool = False):
+    """3-D FFT of (NE, NY, NX) (cuFFT on the card, pocketfft on the CPU);
+    distributed over `mesh` when one is given (a list of blocks)."""
+    if mesh is None:
+        return (torch.fft.ifftn if inverse else torch.fft.fftn)(a,
+                                                               dim=(0, 1, 2))
+    stage = lambda b, ax: _fft1(b, ax, inverse)
+    ny, nx = mesh.grid
+    ne, nyl, nxl = a[0].shape
+    _check(ne, ny, "y", "extended z")
+    if not mesh.pencil:
+        b = _local(stage, _local(stage, a, 0), 2)       # z, x whole
+        b = all_to_all(mesh, b, "y", 0, 1)              # y -> z
+        b = _local(stage, b, 1)                         # y whole
+        return all_to_all(mesh, b, "y", 1, 0)
+    _check(ne, nx, "x", "extended z")
+    _check(nxl * nx, ny, "y", "x")
+    b = _local(stage, a, 0)                             # z whole
+    b = all_to_all(mesh, b, "x", 0, 2)                  # (x, y, .)
+    b = _local(stage, b, 2)                             # x whole
+    b = all_to_all(mesh, b, "y", 2, 1)                  # (x, ., y)
+    b = _local(stage, b, 1)                             # y whole
+    b = all_to_all(mesh, b, "y", 1, 2)                  # (x, y, .)
+    return all_to_all(mesh, b, "x", 2, 0)               # (., y, x)
+
+
+def fft2_xy(a, mesh=None, inverse: bool = False):
+    """2-D FFT along (y, x) of (NZI, NY, NX); distributed over `mesh` when
+    one is given."""
+    if mesh is None:
+        return (torch.fft.ifftn if inverse else torch.fft.fftn)(a, dim=(1, 2))
+    return _xy_stages(a, mesh, lambda b, ax: _fft1(b, ax, inverse))
 
 
 @lru_cache(maxsize=None)
@@ -90,17 +174,22 @@ def _apply_hartley(a, axis: int):
     return _contract(_hartley_matrix(a.shape[axis], a.dtype, a.device), a, axis)
 
 
-def hartley2_xy(a):
+def hartley2_xy(a, mesh=None):
     """Unnormalized real Hartley transform along (y, x) of real
-    (NZI, NY, NX); self-inverse up to 1/(NY*NX)."""
+    (NZI, NY, NX); self-inverse up to 1/(NY*NX).  Distributed over `mesh`
+    when one is given."""
+    if mesh is not None:
+        return _xy_stages(a, mesh, _apply_hartley)
     for ax in (1, 2):
         a = _apply_hartley(a, ax)
     return a
 
 
-def hartley_y(a):
+def hartley_y(a, mesh=None):
     """The y stage of hartley2_xy alone, for data whose x axis is already
     in Hartley space (the fused step's hartley_x RHS, psi_hx)."""
+    if mesh is not None:
+        return _y_stage(a, mesh, _apply_hartley)
     return _apply_hartley(a, 1)
 
 

@@ -1,9 +1,12 @@
-"""CLI runner of the port (counterpart of ekpnp/run.py: `run` and `info`).
+"""CLI runner of the port (counterpart of ekpnp/run.py: `run`, `info` and
+`merge`).
 
 Usage:
     python -m ekpnp_torch run <preset> [--steps N] [--set key=value ...]
                               [--precision f32|f64] [--outdir DIR]
                               [--device cuda|cpu]
+                              [--mesh slab|pencil [--mesh-devices N]]
+    python -m ekpnp_torch merge <preset> <rundir>
     python -m ekpnp_torch info <preset>
 
 Outputs in --outdir, as the JAX package writes them:
@@ -18,14 +21,23 @@ On the card the time loop runs the hand-written fused step kernels
 step (`perturb_first_step`) runs the plain step, on the card's tensors
 where the run is on the card, as the JAX package runs it through its
 oracle.  A non-finite state at a diagnostics event aborts with exit code
-2.  Dumps are written synchronously, inside the timed loop.  Not in this
-port yet: --resume, --mesh, --distributed, --vtk, --save-scalars,
---profile, --checkpoint-full and `merge`.
+2.  Dumps are written synchronously, inside the timed loop.
+
+--mesh shards the domain over N shards (default: one per device of the
+--device kind), placed round-robin over those devices, so `--device cpu
+--mesh slab --mesh-devices 4` runs 4 CPU shards and one card can hold
+several; the time loop is the sharded one (parallel/halo.py), its first
+step the plain per-shard step (parallel/mesh.py make_sharded_step).  A
+sharded run writes per-shard field dumps (fields_NNNNNN.shards/) in place
+of data.dat and data_end.*; `merge` assembles them (io/fields.py).  Not in
+this port yet: --distributed, --resume and --checkpoint-full (sharded
+checkpoints with them), --vtk, --save-scalars, --profile.
 """
 from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import os
 import sys
 import time
@@ -67,6 +79,17 @@ def build_config(args):
     return preset(args.preset, **overrides)
 
 
+def cmd_merge(args):
+    """Assemble a sharded run's per-shard field dumps into data.dat and
+    data_end.dat / .npz (io/fields.py)."""
+    from .io.fields import merge_run_dir
+
+    n = merge_run_dir(args.rundir, build_config(args))
+    print(f"merged {n} zones -> {os.path.join(args.rundir, 'data.dat')} "
+          f"(+ data_end.dat, data_end.npz)")
+    return 0
+
+
 def cmd_info(args):
     from .diagnostics import dimensionless_banner
 
@@ -93,11 +116,19 @@ def cmd_run(args):
     from .kernels.step import multi_step, step_fused
     from .ops.collide import compute_macro
     from .ops.poisson import efield
+    from .parallel import mesh as pmesh
     from .step import step as plain_step
+
+    mesh = None
+    if args.mesh:
+        mesh = pmesh.make_mesh(pmesh.mesh_devices(dev, args.mesh_devices),
+                               pencil=args.mesh == "pencil")
+        pmesh.check_divisibility(cfg, mesh)
 
     def sync():
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            for d in set(mesh.devices if mesh is not None else [dev]):
+                torch.cuda.synchronize(d)
 
     print(dimensionless_banner(cfg))
     print(f"  timesteps: {cfg.run.nsteps}  save every: {cfg.run.nsave}")
@@ -107,6 +138,10 @@ def cmd_run(args):
           + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else "")
           + ("  fused step: CUDA kernels" if dev.type == "cuda"
              else "  fused step: plain PyTorch"))
+    if mesh is not None:
+        print(f"  mesh: {mesh.shape} over {len(set(mesh.devices))} "
+              f"device(s); field dumps per shard (fields_NNNNNN.shards/), "
+              f"run `merge {args.preset} <outdir>` for data.dat")
 
     outdir = cfg.run.outdir
     os.makedirs(outdir, exist_ok=True)
@@ -129,18 +164,53 @@ def cmd_run(args):
     save_off = 2 % nsave if cfg.run.compat_cadence else 0
     cur_off = 2 % ncur if cfg.run.compat_cadence else 0
 
-    with open(os.path.join(outdir, "data.dat"), "w") as fout, \
-            open(os.path.join(outdir, "umax.dat"), "w") as fumax, \
-            open(os.path.join(outdir, "series.csv"), "w") as fcsv:
+    if mesh is None:
+        def zone(fout, st, first=False):
+            macro, _ = compute_macro(cfg, st)
+            tecplot.write_zone(fout, cfg, macro, st.phi, efield_now(st),
+                               float(st.t), first=first)
+            return macro
+
+        def advance(st, n):
+            return multi_step(cfg, st, n)
+    else:
+        from .io.fields import save_fields_sharded
+        from .parallel.halo import shard_macros
+
+        state = pmesh.shard_state(cfg, mesh, state)
+        chunk_fns = {}
+
+        def zone(fout, st, first=False):
+            parts = shard_macros(cfg, mesh, st)
+            save_fields_sharded(
+                os.path.join(outdir, f"fields_{done:06d}.shards"), cfg, mesh,
+                [m for m, _ in parts], st.phi,
+                [E for _, E in parts] if cfg.physics.enable_ek else None,
+                float(st.t))
+
+        def advance(st, n):
+            if n not in chunk_fns:
+                chunk_fns[n] = pmesh.make_sharded_multi_step(cfg, mesh, n)
+            return chunk_fns[n](st)
+
+    done = 0
+    with contextlib.ExitStack() as files:
+        fout = (files.enter_context(open(os.path.join(outdir, "data.dat"), "w"))
+                if mesh is None else None)
+        fumax = files.enter_context(open(os.path.join(outdir, "umax.dat"), "w"))
+        fcsv = files.enter_context(open(os.path.join(outdir, "series.csv"), "w"))
         fcsv.write("step,t,umax_uz,umax_mag,current,mean_T\n")
-        macro, _ = compute_macro(cfg, state)
-        tecplot.write_zone(fout, cfg, macro, state.phi, efield_now(state),
-                           float(state.t), first=True)
+        zone(fout, state, first=True)
 
         # one step before the clock starts (the reference times the loop
         # only); when configured it seeds the convection pattern through
-        # the plain step, which the kernels do not implement
-        if cfg.run.perturb_first_step:
+        # the plain step, which the kernels do not implement; under a mesh
+        # it is the plain per-shard step either way, as the JAX package's
+        # first sharded step is its oracle's
+        if mesh is not None:
+            state, _ = pmesh.make_sharded_step(
+                cfg, mesh, perturb=cfg.run.perturb_first_step)(state)
+        elif cfg.run.perturb_first_step:
             state, _ = plain_step(cfg, state, perturb=True)
         else:
             state, _ = step_fused(cfg, state)
@@ -151,11 +221,11 @@ def cmd_run(args):
         while done < nsteps:
             nxt = min(_next_multiple(done, nsave, save_off),
                       _next_multiple(done, ncur, cur_off), nsteps)
-            state = multi_step(cfg, state, nxt - done)
+            state = advance(state, nxt - done)
             done = nxt
             if done % ncur == cur_off or done == nsteps:
                 um, umag, cur, mean_t, finite = (
-                    x.item() for x in series_point(cfg, state))
+                    x.item() for x in series_point(cfg, state, mesh))
                 t_now = float(state.t)
                 fumax.write(f"{t_now:10.6f} {um:10.6f}\n")
                 fcsv.write(f"{done},{t_now:.9e},{um:.9e},{umag:.9e},"
@@ -167,20 +237,17 @@ def cmd_run(args):
                           f"aborting", file=sys.stderr)
                     return 2
             if done % nsave == save_off and done < nsteps:
-                macro, _ = compute_macro(cfg, state)
-                tecplot.write_zone(fout, cfg, macro, state.phi,
-                                   efield_now(state), float(state.t))
+                zone(fout, state)
         sync()
         runtime = time.perf_counter() - t0
+        macro = zone(fout, state)
 
-        macro, _ = compute_macro(cfg, state)
+    if mesh is None:
         E_io = efield_now(state)
-        tecplot.write_zone(fout, cfg, macro, state.phi, E_io, float(state.t))
-
-    ckpt.save_npz(os.path.join(outdir, "data_end.npz"), cfg, macro, state.phi,
-                  E_io, float(state.t))
-    ckpt.save_reference_ascii(os.path.join(outdir, "data_end.dat"), cfg, macro,
-                              state.phi, E_io, float(state.t))
+        ckpt.save_npz(os.path.join(outdir, "data_end.npz"), cfg, macro,
+                      state.phi, E_io, float(state.t))
+        ckpt.save_reference_ascii(os.path.join(outdir, "data_end.dat"), cfg,
+                                  macro, state.phi, E_io, float(state.t))
 
     steps_timed = max(nsteps, done) - steps_warm
     nodes_updated = steps_timed * cfg.grid.num_nodes
@@ -213,11 +280,26 @@ def main(argv=None):
     common(p_run)
     p_run.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                        help="cuda (default; raises without a card) or cpu")
+    p_run.add_argument(
+        "--mesh", choices=["slab", "pencil"], default=None,
+        help="shard the domain (slab: y, pencil: y+x) over --mesh-devices "
+             "shards")
+    p_run.add_argument(
+        "--mesh-devices", type=int, default=0,
+        help="number of shards for --mesh, round-robin over the devices of "
+             "the --device kind (default: one per device)")
     p_run.set_defaults(fn=cmd_run)
 
     p_info = sub.add_parser("info", help="print configuration banner")
     common(p_info)
     p_info.set_defaults(fn=cmd_info)
+
+    p_merge = sub.add_parser(
+        "merge", help="assemble a sharded run's per-shard field dumps "
+        "(fields_NNNNNN.shards/) into data.dat + data_end.dat/.npz")
+    common(p_merge)
+    p_merge.add_argument("rundir", help="the sharded run's --outdir")
+    p_merge.set_defaults(fn=cmd_merge)
 
     args = ap.parse_args(argv)
     return args.fn(args)

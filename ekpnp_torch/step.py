@@ -18,10 +18,12 @@ from .ops.stream import stream
 from .state import State
 
 
-def collide_and_reflect(cfg: Config, state: State, perturb: bool = False):
+def collide_and_reflect(cfg: Config, state: State, perturb: bool = False,
+                        E=None, origin=(0, 0)):
     """Collide every field, then bounce the fluid back at both plates from
-    its pre-collision populations.  Returns (PostCollision, Macro)."""
-    post, macro = collide(cfg, state, perturb=perturb)
+    its pre-collision populations.  Returns (PostCollision, Macro).  E and
+    `origin`: a shard's field and position (ops.collide.compute_macro)."""
+    post, macro = collide(cfg, state, perturb=perturb, E=E, origin=origin)
     return post._replace(f=bounce_back_walls(cfg, post.f, state.f)), macro
 
 
