@@ -8,11 +8,13 @@ printing the final line, if any phase fails:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the fused step kernels from csrc/fused_step.cu (nvcc, sm_90a);
-  3. kernels vs their plain PyTorch versions on the card, physics cases
-     A-J and the reference's own 50x8x51, f64 and f32, 3 steps each, every
-     collide form (plain RHS; with EK on also hartley_x and phi_hx, psi
-     encoded from the case's phi): max|d|/max|ref| per field <= 1e-12
-     (f64) / 1e-5 (f32);
+  3. kernels vs their plain PyTorch versions on the card: the row product
+     hartley_rows_kernel alone at NX 10, 16, 25, 50, 256 and 512 on row
+     counts no multiple of its tile (plain and lifted, aligned and not);
+     then physics cases A-J and the reference's own 50x8x51, f64 and f32,
+     3 steps each, every collide form (plain RHS; with EK on also
+     hartley_x and phi_hx, psi encoded from the case's phi):
+     max|d|/max|ref| per field <= 1e-12 (f64) / 1e-5 (f32);
   4. golden: `reference`, f64, initialize + 60 steps of the default
      multi_step (the phi_hx route, its launches counted), the golden
      values of tests/test_golden.py at rtol 1e-9;
@@ -24,9 +26,11 @@ printing the final line, if any phase fails:
      bench headline (256x256x257, f32, D3Q7 scalars) the same way for
      50 + 50 steps, and 40 steps of it with fft_method "fft" (the
      plain-RHS form's path).  Launch counts are zeroed before each run and
-     must equal the steps, per form; the state must stay finite; every
-     form, stream_bc and the three solves are timed by CUDA events and
-     each kernel is held to its plain version on that run's state;
+     must equal the steps, per form (and the row products per step); the
+     state must stay finite; every form, stream_bc, the row product (next
+     to torch.matmul on the same rows) and the three solves are timed by
+     CUDA events and each kernel is held to its plain version on that
+     run's state;
   6. the CLI with the perturbed first step, 10 steps on the card: rc 0,
      finite series;
 then the sharded time loop (ekpnp_torch/parallel), its shards all on the
@@ -46,7 +50,8 @@ one card (a mesh may hold a device more than once):
      (shard_x route), each held to 20 single-device steps (F32_SHARDED);
      on slab 4 also 10 steps with phi_hx off (hartley_x .halo) and 10 with
      fft_method "fft" (plain-RHS .halo); each form timed by CUDA events on
-     shard 0 and held to its plain version there.  Then the `pod` preset
+     shard 0 and held to its plain version there, the row product on
+     shard 0's RHS rows too.  Then the `pod` preset
      (BASELINE config 5, 512x256x257, f32, every field D3Q27, PB init with
      pb_omega 0.02): 50 steps on slab 4 and 50 on pencil 2x2 (re-sharded
      from the slab run's state), ms/step, MLUPS, per-launch, exchange and
@@ -105,15 +110,21 @@ SOURCE = "ekpnp_torch/csrc/fused_step.cu"
 # the stream reads)
 REPLACES = {
     "collide_kernel": "ekpnp/pallas/fused_step.py:1321",
-    "collide_rows_kernel.hartley_x": "ekpnp/pallas/fused_step.py:984",
-    "collide_rows_kernel.phi_hx": "ekpnp/pallas/fused_step.py:680",
+    "collide_kernel.hartley_x": "ekpnp/pallas/fused_step.py:984",
+    "collide_kernel.phi_hx": "ekpnp/pallas/fused_step.py:680",
+    "hartley_rows_kernel": "ekpnp/pallas/fused_step.py:984",
     "stream_bc_kernel": "ekpnp/pallas/fused_step.py:1321",
     "collide_kernel.halo": "ekpnp/pallas/fused_step.py:516",
-    "collide_rows_kernel.hartley_x.halo": "ekpnp/pallas/fused_step.py:516",
-    "collide_rows_kernel.phi_hx.halo": "ekpnp/pallas/fused_step.py:516",
+    "collide_kernel.hartley_x.halo": "ekpnp/pallas/fused_step.py:516",
+    "collide_kernel.phi_hx.halo": "ekpnp/pallas/fused_step.py:516",
     "collide_kernel.shard_x": "ekpnp/pallas/fused_step.py:521",
     "stream_bc_kernel.halo": "ekpnp/pallas/fused_step.py:570",
 }
+# row products per collide launch of each form: the RHS (hartley_x); psi
+# and the RHS (phi_hx), and on a slab shard psi's two halo rows
+ROWS_PER_COLLIDE = {"collide_kernel.hartley_x": 1, "collide_kernel.phi_hx": 2,
+                    "collide_kernel.hartley_x.halo": 1,
+                    "collide_kernel.phi_hx.halo": 4}
 # the sharded meshes of phase 3b: (shards, pencil)
 MESHES = {"slab2": (2, False), "slab4": (4, False), "pencil2x2": (4, True)}
 # f32 tolerance of a 20-step sharded run against the single-device run
@@ -123,8 +134,11 @@ MESHES = {"slab2": (2, False), "slab4": (4, False), "pencil2x2": (4, True)}
 F32_SHARDED = 1e-4
 # the collide forms: (kernel, keyword arguments of fused_step.collide)
 FORMS = (("collide_kernel", dict(hartley_x=False)),
-         ("collide_rows_kernel.hartley_x", dict(hartley_x=True)),
-         ("collide_rows_kernel.phi_hx", dict(phi_hx=True)))
+         ("collide_kernel.hartley_x", dict(hartley_x=True)),
+         ("collide_kernel.phi_hx", dict(phi_hx=True)))
+# the row product's widths in phase 3: case J's, the collide cases', an odd
+# one, the reference's, 256^3's and pod's
+ROWS_NX = (10, 16, 25, 50, 256, 512)
 # device-memory rate by card name (NVIDIA data sheets)
 HBM_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
           ("H100", 3.35e12))
@@ -214,14 +228,13 @@ def phase_build():
     # over the lattice pairs
     fam = {}
     for name in re.findall(r"Compiling entry function '(\w+)'", info["log"]):
-        m = re.search(r"(collide_rows_kernel|collide_kernel|"
+        m = re.search(r"(hartley_rows_kernel|collide_kernel|"
                       r"stream_bc_halo_kernel|stream_bc_kernel)"
-                      r"I([fd])Li\d+ELi\d+E(?:Li(\d)E)?", name)
+                      r"I([fd])(?:Lb([01])E)?", name)
         used = re.search(r"Used (\d+) registers",
                          info["log"][info["log"].index(name):])
         if m and used:
-            key = (m.group(1) + (f".{m.group(3)}" if m.group(3) else "")
-                   + (".global" if "PhiGlobal" in name else "")
+            key = (m.group(1) + (".vec" if m.group(3) == "1" else "")
                    + f" {m.group(2)}")
             fam[key] = max(fam.get(key, 0), int(used.group(1)))
     log(f"build: {info['seconds']:.1f} s nvcc, {secs:.1f} s build+load; "
@@ -249,6 +262,46 @@ def _forms(cfg):
     return FORMS if hx else FORMS[:1]
 
 
+def rows_vs_plain():
+    """hartley_rows_kernel against its plain version on the card, f64 and
+    f32, at every NX of ROWS_NX on 37 x 7 = 259 rows (two 128-row tiles and
+    3): lifted psi blocks (NZ, NY, NX) and halo rows (NZ, NX), plain RHS
+    blocks (NZ-2, NY, NX), and a block one element off 16-byte alignment
+    (the one-element cp.async path).  Returns {(dtype, kernel): worst}."""
+    import numpy as np
+    import torch
+
+    import ekpnp_torch
+    from ekpnp_torch.kernels import fused_step as fs
+
+    worst = {}
+    nz, ny = 37, 7
+    for dtype in ("float64", "float32"):
+        for nx in ROWS_NX:
+            cfg = ekpnp_torch.preset("reference", nx=nx, ny=ny, nz=nz,
+                                     dtype=dtype)
+            rng = np.random.default_rng(nx)
+            t = lambda *shape: torch.as_tensor(
+                rng.standard_normal(shape), dtype=getattr(torch, dtype),
+                device="cuda")
+            off = t(nz * ny * nx + 1)[1:].view(nz, ny, nx)
+            errs = []
+            for a, lift in ((t(nz, ny, nx), cfg), (t(nz, nx), cfg),
+                            (t(nz - 2, ny, nx), None), (off, cfg)):
+                errs.append(rel_err(fs.hartley_rows(a, lift=lift),
+                                    fs.hartley_rows_reference(a, lift=lift)))
+            torch.cuda.synchronize()
+            key = (dtype, "hartley_rows_kernel")
+            worst[key] = max(worst.get(key, 0.0), *errs)
+            if max(errs) > TOL[dtype]:
+                raise SystemExit(f"chip_smoke: hartley_rows_kernel {dtype} "
+                                 f"NX={nx} rel err {max(errs):.3e} > "
+                                 f"{TOL[dtype]}")
+            log(f"  hartley_rows_kernel {dtype} NX={nx:3d}: psi / halo rows "
+                f"/ RHS / misaligned " + " ".join(f"{e:.1e}" for e in errs))
+    return worst
+
+
 def phase_kernels_vs_plain():
     import torch
 
@@ -256,7 +309,7 @@ def phase_kernels_vs_plain():
     from ekpnp_torch.kernels import fused_step as fs
     from ekpnp_torch.ops.poisson import poisson_phi_from_rhs
 
-    worst = {}  # (dtype, kernel) -> max rel err
+    worst = rows_vs_plain()  # (dtype, kernel) -> max rel err
     for dtype in ("float64", "float32"):
         for seed, (case, (name, ov)) in enumerate(CASES.items()):
             cfg = ekpnp_torch.preset(name, dtype=dtype, **ov)
@@ -297,7 +350,8 @@ def phase_kernels_vs_plain():
                                      f"rel err {e:.3e} > {TOL[dtype]}")
                 if lab != "step":
                     worst[(dtype, lab)] = max(worst.get((dtype, lab), 0.0), e)
-    log("kernels vs plain (every form): all cases within 1e-12 (f64) / 1e-5 (f32)")
+    log("kernels vs plain (the row product, every form): all cases within "
+        "1e-12 (f64) / 1e-5 (f32)")
     return worst
 
 
@@ -333,6 +387,15 @@ def _golden_devs(cfg, state, label):
     return devs
 
 
+def _route(form, collides, stream="stream_bc_kernel"):
+    """The launches of `collides` collides of `form`, their row products
+    and as many streams."""
+    want = {form: collides, stream: collides}
+    if ROWS_PER_COLLIDE.get(form):
+        want["hartley_rows_kernel"] = ROWS_PER_COLLIDE[form] * collides
+    return want
+
+
 def _want_launches(counts, label, **want):
     """counts must be `want` and 0 for every other kernel form."""
     from ekpnp_torch.kernels.fused_step import KERNELS
@@ -355,8 +418,7 @@ def phase_golden():
     fs.reset_launches()
     state = multi_step(cfg, state, 60)
     _want_launches(dict(fs.launches), "golden run (x-Hartley route)",
-                   **{"collide_rows_kernel.phi_hx": 60,
-                      "stream_bc_kernel": 60})
+                   **_route("collide_kernel.phi_hx", 60))
     return _golden_devs(cfg, state,
                         "golden (reference, f64, 60 steps, phi_hx route)")
 
@@ -375,27 +437,70 @@ def _events_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def _ops_collide(cfg, kname):
-    """Arithmetic of one collide launch, counted from its source: per node
+def _ops_rows(nx, m):
+    """Operations of the row product over m rows of nx values: a multiply
+    and an add per term, nx terms per value."""
+    return 2 * nx * m * nx
+
+
+def _ops_collide(cfg, kname, halo=False):
+    """Arithmetic of one collide form, counted from its function: per node
     and fluid direction ~4 (moments) + ~12 (feq, TRT) + ~20 (Guo); per
     scalar direction ~1 (moment) + ~12; ~60 for E, force and velocity.
-    The x-Hartley forms add their row products, 2 NX operations per value:
-    every interior RHS value, and for phi_hx every phi value the row-block
-    launch decodes (3 (rb + 2) rows of NX per tile of rb rows and z)."""
-    from ekpnp_torch.kernels.fused_step import row_block_rows
-
+    The x-Hartley forms add their row products: every interior RHS value,
+    and for phi_hx every phi value once (NZ NY NX; on a slab shard, `halo`,
+    also psi's two halo rows), whatever implements them."""
     g = cfg.grid
     p = cfg.physics
     nsc = ((2 if p.two_species else 1) if p.enable_ek else 0) + int(p.enable_thermal)
     ops = g.num_nodes * (36 * cfg.lattice.Q + 13 * nsc * cfg.scalar_lat.Q + 60)
     if kname != "collide_kernel":
-        ops += 2 * g.nx * (g.nz - 2) * g.ny * g.nx
-    if kname == "collide_rows_kernel.phi_hx":
-        item = 8 if cfg.run.dtype == "float64" else 4
-        rb = row_block_rows(g.nx, item, True)
-        decoded = g.nz * -(-g.ny // rb) * 3 * (rb + 2) * g.nx
-        ops += 2 * g.nx * decoded
+        ops += _ops_rows(g.nx, (g.nz - 2) * g.ny)
+    if kname == "collide_kernel.phi_hx":
+        ops += _ops_rows(g.nx, g.nz * (g.ny + (2 if halo else 0)))
     return ops
+
+
+def _design_bytes(kname, rhs, phi, halo_rows=0):
+    """Bytes an x-Hartley form (composed) moves beyond its function's: each
+    product writes and reads back its rows once more (the plain RHS; for
+    phi_hx the decoded phi and a shard's halo rows)."""
+    nb = lambda t: t.numel() * t.element_size()
+    extra = 2 * nb(rhs)
+    if "phi_hx" in kname:
+        extra += 2 * nb(phi) + 2 * halo_rows * phi[:, 0].numel() * phi.element_size()
+    return extra
+
+
+def time_rows(rows, lift=None):
+    """hartley_rows_kernel on `rows` (NZ', NY, NX) by CUDA events, its plain
+    version, and torch.matmul on the same (M, NX) rows and H (the library
+    call; the lift, an add per row, left out); the bytes of its bound (the
+    rows read and written and H read once) and its operations.  Fails if
+    the kernel differs from its plain version by more than TOL."""
+    import torch
+
+    from ekpnp_torch.kernels import fused_step as fs
+
+    nx = rows.shape[-1]
+    flat = rows.view(-1, nx)
+    H = fs._cas(nx, rows)
+    got = fs.hartley_rows(rows, lift=lift)
+    want = fs.hartley_rows_reference(rows, lift=lift)
+    dtype = str(rows.dtype).replace("torch.", "")
+    res = dict(ms=_events_ms(lambda: fs.hartley_rows(rows, lift=lift), 10),
+               plain_ms=_events_ms(
+                   lambda: fs.hartley_rows_reference(rows, lift=lift), 10),
+               library_ms=_events_ms(lambda: torch.matmul(flat, H), 10),
+               rel_err=rel_err(got, want),
+               abs_err=float((got - want).abs().max()),
+               bytes=(2 * rows.numel() * rows.element_size()
+                      + H.numel() * H.element_size()),
+               ops=_ops_rows(nx, flat.shape[0]), rows=flat.shape[0], nx=nx)
+    if res["rel_err"] > TOL[dtype]:
+        raise SystemExit(f"chip_smoke: hartley_rows_kernel vs plain rel err "
+                         f"{res['rel_err']:.3e} on {tuple(rows.shape)}")
+    return res
 
 
 def _chunks(cfg, state, steps, every, run, label):
@@ -420,9 +525,9 @@ def _chunks(cfg, state, steps, every, run, label):
 
 
 def _expect_launches(label, counts, form, steps):
-    """The run launched `form` and stream_bc_kernel once per step and no
-    other collide form."""
-    _want_launches(counts, label, **{form: steps, "stream_bc_kernel": steps})
+    """The run launched `form` and stream_bc_kernel once per step, the
+    form's row products, and no other collide form."""
+    _want_launches(counts, label, **_route(form, steps))
 
 
 def drive(label, cfg, make, steps, every, other_steps, bw):
@@ -430,8 +535,9 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     route) for `steps` steps, then one chunk of `other_steps` with the
     other phi_hx setting (multi_step_rhs: hartley_x form, real phi between
     steps); counts zeroed just before each run and read just after.  Then
-    every collide form, stream_bc and the solves are timed on the final
-    state and held to their plain versions."""
+    every collide form, stream_bc, the row product (on the RHS rows; the
+    decode on psi) and the solves are timed on the final state and held to
+    their plain versions."""
     import torch
 
     from ekpnp_torch.diagnostics import check_finite
@@ -453,13 +559,13 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     init_s = time.perf_counter() - t0
     state, chunks = _chunks(cfg, state, steps, every, multi_step, label)
     counts = dict(fs.launches)
-    _expect_launches(label, counts, "collide_rows_kernel.phi_hx", steps)
+    _expect_launches(label, counts, "collide_kernel.phi_hx", steps)
     fs.reset_launches()
     state, other = _chunks(cfg, state, other_steps, other_steps,
                            multi_step_rhs, label + " phi_hx off")
     counts_other = dict(fs.launches)
     _expect_launches(label + " phi_hx off", counts_other,
-                     "collide_rows_kernel.hartley_x", other_steps)
+                     "collide_kernel.hartley_x", other_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finite = check_finite(state)
     if not finite:
@@ -473,7 +579,8 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     ins = (state.f, state.h, state.hn, state.g, state.phi)
     H_bytes = cfg.grid.nx ** 2 * state.f.element_size()
     ms, plain_ms, lib_ms, errs, abs_errs, bytes_, ops = {}, {}, {}, {}, {}, {}, {}
-    solve_ms = {}
+    solve_ms, design_bytes = {}, {}
+    rk = "hartley_rows_kernel"
     for kname, kw in FORMS:
         x = _form_inputs(cfg, ins, kw)
         post = fs.collide(cfg, *x, **kw)
@@ -487,19 +594,26 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
         bytes_[kname] = nb(x) + nb(post) + (H_bytes if kname != "collide_kernel" else 0)
         ops[kname] = _ops_collide(cfg, kname)
         rhs = post[4]
+        if kname in ROWS_PER_COLLIDE:
+            design_bytes[kname] = bytes_[kname] + _design_bytes(kname, rhs, x[4])
         if kname == "collide_kernel":
             solve_ms["plain"] = _events_ms(lambda: poisson_phi_from_rhs(cfg, rhs), 10)
             lib_ms[kname] = None
             plain_rhs = rhs
-        elif kname == "collide_rows_kernel.hartley_x":
+        elif kname == "collide_kernel.hartley_x":
             solve_ms["rhs_hx"] = _events_ms(
                 lambda: poisson_phi_from_rhs(cfg, rhs, rhs_hx=True), 10)
             solve_ms["psi_hx"] = _events_ms(
                 lambda: poisson_psi_hx_from_rhs(cfg, rhs), 10)
             lib_ms[kname] = _events_ms(lambda: hartley_x_local(plain_rhs), 10)
+            r = time_rows(plain_rhs)  # the row product on the RHS rows
+            ms[rk], plain_ms[rk], lib_ms[rk] = r["ms"], r["plain_ms"], r["library_ms"]
+            errs[rk], abs_errs[rk] = r["rel_err"], r["abs_err"]
+            bytes_[rk], ops[rk] = r["bytes"], r["ops"]
         else:
             psi = x[4]
             lib_ms[kname] = _events_ms(lambda: hartley_x_local(psi), 10)
+            decode = time_rows(psi, lift=cfg)  # and the decode of psi
         if kname == "collide_kernel":
             kout = fs.stream_bc(cfg, *post[:4])
             ms["stream_bc_kernel"] = _events_ms(
@@ -521,10 +635,12 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
         if e > TOL[cfg.run.dtype]:
             raise SystemExit(f"chip_smoke: {label}: {k} vs plain rel err {e:.3e}")
 
-    bound = {}
+    bound, bound_design = {}, {}
     for k in ms:
         tb, to = bytes_[k] / bw * 1e3, ops[k] / PEAK[cfg.run.dtype] * 1e3
         bound[k] = (max(tb, to), "bytes" if tb >= to else "operations")
+        if k in design_bytes:  # the composed forms' own floor
+            bound_design[k] = max(design_bytes[k] / bw * 1e3, to)
     res = dict(label=label, grid=list(cfg.grid.shape), dtype=cfg.run.dtype,
                scalars=cfg.scalar_lat.name, steps=steps, init_s=init_s,
                step_ms=step_ms, chunk_ms=[c * 1e3 for c in chunks], mlups=mlups,
@@ -533,6 +649,7 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
                kernel_ms=ms, solve_ms=solve_ms, library_ms=lib_ms,
                plain_ms=plain_ms, bound_ms={k: v[0] for k, v in bound.items()},
                bound_by={k: v[1] for k, v in bound.items()},
+               bound_design_ms=bound_design, rows_decode=decode,
                bytes=bytes_, ops=ops, rel_err=errs, abs_err=abs_errs,
                peak_gb=peak_gb, finite=finite)
     log(f"{label}: {mlups:.1f} MLUPS, {step_ms:.3f} ms/step (phi_hx route), "
@@ -540,8 +657,13 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
         f"{init_s:.2f} s, peak {peak_gb:.2f} GB")
     for k in ms:
         lib = f", library {lib_ms[k]:.3f}" if lib_ms.get(k) is not None else ""
-        log(f"  {k}: {ms[k]:.3f} ms (bound {bound[k][0]:.3f}, {bound[k][1]}), "
-            f"plain {plain_ms[k]:.2f} ms{lib}, rel err {errs[k]:.2e}")
+        des = (f"; composed floor {bound_design[k]:.3f}"
+               if k in bound_design else "")
+        log(f"  {k}: {ms[k]:.3f} ms (bound {bound[k][0]:.3f}, {bound[k][1]}"
+            f"{des}), plain {plain_ms[k]:.2f} ms{lib}, rel err {errs[k]:.2e}")
+    log(f"  {rk} decode (psi, lifted, {decode['rows']} rows): "
+        f"{decode['ms']:.3f} ms, torch.matmul {decode['library_ms']:.3f} ms, "
+        f"plain {decode['plain_ms']:.3f} ms, rel err {decode['rel_err']:.2e}")
     log("  solve: " + ", ".join(f"{k} {v:.3f} ms" for k, v in solve_ms.items()))
     return res, state
 
@@ -648,8 +770,8 @@ def _shard_forms(cfg, mesh):
         return [("collide_kernel.shard_x", dict(hartley_x=False))]
     forms = [("collide_kernel.halo", dict(hartley_x=False))]
     if cfg.run.fft_method != "fft":
-        forms += [("collide_rows_kernel.hartley_x.halo", dict(hartley_x=True)),
-                  ("collide_rows_kernel.phi_hx.halo", dict(phi_hx=True))]
+        forms += [("collide_kernel.hartley_x.halo", dict(hartley_x=True)),
+                  ("collide_kernel.phi_hx.halo", dict(phi_hx=True))]
     return forms
 
 
@@ -731,7 +853,7 @@ def phase_sharded_kernels_vs_plain():
                                          f" overlapped chunk != serial")
             torch.cuda.synchronize()
             log(f"  sharded case {case:8s} {dtype}: " + " ".join(
-                f"{lab.replace('_kernel', '').replace('collide_rows', 'rows')}"
+                f"{lab.replace('_kernel', '')}"
                 f":{f} {e:.1e}" for (lab, f), e in errs.items()
                 if f in ("f", "rhs")))
             for (lab, fld), e in errs.items():
@@ -761,8 +883,8 @@ def phase_sharded_golden():
     fs.reset_launches()
     state = make_sharded_multi_step(cfg, mesh, 60)(state)
     _want_launches(dict(fs.launches), "sharded golden run",
-                   **{"collide_rows_kernel.phi_hx.halo": 120,
-                      "stream_bc_kernel.halo": 120})
+                   **_route("collide_kernel.phi_hx.halo", 120,
+                            "stream_bc_kernel.halo"))
     return _golden_devs(cfg, gather_state(mesh, state),
                         "golden through a slab-2 mesh (reference, f64, 60 "
                         "steps, phi_hx .halo route)")
@@ -795,9 +917,10 @@ def _sharded_chunks(cfg, mesh, state, steps, every, label, **kw):
 
 def time_sharded(cfg, mesh, state, bw):
     """Per form on shard 0: CUDA-event time, bound, and the plain
-    version's time and error (fails above TOL); the exchange (phi halo + post rows of
-    every shard), the distributed solve of the route, and the pencil's
-    column repair, all shards."""
+    version's time and error (fails above TOL); on a slab the row product
+    on shard 0's RHS rows; the exchange (phi halo + post rows of every
+    shard), the distributed solve of the route, and the pencil's column
+    repair, all shards."""
     import torch
 
     from ekpnp_torch.kernels import fused_step as fs
@@ -811,7 +934,8 @@ def time_sharded(cfg, mesh, state, bw):
     nb = lambda ts: sum(t.numel() * t.element_size()
                         for t in ts if t is not None)
     res = dict(kernel_ms={}, plain_ms={}, library_ms={}, bound_ms={},
-               bound_by={}, rel_err={}, abs_err={}, other_ms={})
+               bound_by={}, bound_design_ms={}, rel_err={}, abs_err={},
+               other_ms={})
     peak = PEAK[cfg.run.dtype]
 
     def bound(k, nbytes, ops):
@@ -836,7 +960,13 @@ def time_sharded(cfg, mesh, state, bw):
         res["kernel_ms"][kname] = _events_ms(
             lambda: fs.collide(cfg_l, *x, post=post[:4], phi_halo=h, **kw), 10)
         base = kname.replace(".halo", "").replace(".shard_x", "")
-        bound(kname, nb(x) + nb(h) + nb(post), _ops_collide(cfg_l, base))
+        ops = _ops_collide(cfg_l, base, halo=kname.endswith(".halo"))
+        bound(kname, nb(x) + nb(h) + nb(post), ops)
+        if base in ROWS_PER_COLLIDE:  # the composed forms' own floor
+            res["bound_design_ms"][kname] = max(
+                (nb(x) + nb(h) + nb(post)
+                 + _design_bytes(kname, post[4], x[4], halo_rows=2)) / bw * 1e3,
+                ops / peak * 1e3)
         res["library_ms"][kname] = (None if base == "collide_kernel" else
                                     _events_ms(lambda: hartley_x_local(
                                         x[4] if kw.get("phi_hx") else post[4]),
@@ -844,6 +974,13 @@ def time_sharded(cfg, mesh, state, bw):
         check(kname, post, fs.collide_reference(cfg_l, *x, phi_halo=h, **kw))
         res["plain_ms"][kname] = _events_ms(
             lambda: fs.collide_reference(cfg_l, *x, phi_halo=h, **kw), 2)
+        if kname == "collide_kernel.halo":  # the row product, shard 0's RHS
+            k = "hartley_rows_kernel"
+            r = time_rows(post[4])
+            for key in ("kernel_ms", "plain_ms", "library_ms", "rel_err",
+                        "abs_err"):
+                res[key][k] = r[{"kernel_ms": "ms"}.get(key, key)]
+            bound(k, r["bytes"], r["ops"])
         rhs = [p[4] for p in posts]
         if kw.get("phi_hx"):
             res["other_ms"]["solve psi_hx"] = _events_ms(
@@ -892,8 +1029,10 @@ def _log_sharded(label, res, ms_step):
               f"{res['rel_err'][k]:.2e}" if k in res["plain_ms"] else "")
         lib = (f", library {res['library_ms'][k]:.3f}"
                if res["library_ms"].get(k) is not None else "")
+        des = (f"; composed floor {res['bound_design_ms'][k]:.3f}"
+               if k in res["bound_design_ms"] else "")
         log(f"  {label} {k} (shard 0): {v:.3f} ms (bound "
-            f"{res['bound_ms'][k]:.3f}, {res['bound_by'][k]}){pl}{lib}")
+            f"{res['bound_ms'][k]:.3f}, {res['bound_by'][k]}{des}){pl}{lib}")
     log(f"  {label} all shards: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in res["other_ms"].items())
         + f"; exchange {res.get('exchange_bytes', 0) / 1e6:.1f} MB; "
@@ -915,7 +1054,7 @@ def phase_sharded_main(bw, start):
     steps = 20
     ref = multi_step(cfg, _clone(s0), steps)
     out = {}
-    for mname, form in (("slab4", "collide_rows_kernel.phi_hx.halo"),
+    for mname, form in (("slab4", "collide_kernel.phi_hx.halo"),
                         ("pencil2x2", "collide_kernel.shard_x")):
         label = f"ek-pnp-thermal {mname}"
         mesh = _cuda_mesh(mname)
@@ -925,8 +1064,8 @@ def phase_sharded_main(bw, start):
         fs.reset_launches()
         sh, chunks = _sharded_chunks(cfg, mesh, sh, steps, steps, label)
         runs = [dict(fs.launches)]
-        _want_launches(runs[0], label, **{form: steps * 4,
-                                          "stream_bc_kernel.halo": steps * 4})
+        _want_launches(runs[0], label, **_route(form, steps * 4,
+                                                "stream_bc_kernel.halo"))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         got = gather_state(mesh, sh)
         errs = {k: rel_err(getattr(got, k), getattr(ref, k))
@@ -942,7 +1081,7 @@ def phase_sharded_main(bw, start):
         if not mesh.pencil:
             for sub, kw, scfg, sform in (
                     ("phi_hx off", dict(phi_hx=False), cfg,
-                     "collide_rows_kernel.hartley_x.halo"),
+                     "collide_kernel.hartley_x.halo"),
                     ("fft_method fft", {}, dataclasses.replace(
                         cfg, run=dataclasses.replace(cfg.run,
                                                      fft_method="fft")),
@@ -952,7 +1091,7 @@ def phase_sharded_main(bw, start):
                                         f"{label} {sub}", **kw)
                 runs.append(dict(fs.launches))
                 _want_launches(runs[-1], f"{label} {sub}",
-                               **{sform: 40, "stream_bc_kernel.halo": 40})
+                               **_route(sform, 40, "stream_bc_kernel.halo"))
                 other[sub] = c[-1] * 1e3
         res = time_sharded(cfg, mesh, sh, bw)
         ms_step = chunks[-1] * 1e3
@@ -986,7 +1125,7 @@ def phase_pod(bw):
     log(f"  pod PB init: {time.perf_counter() - t0:.2f} s, final relative "
         f"update {float(res):.3e}")
     out = {}
-    for mname, form in (("slab4", "collide_rows_kernel.phi_hx.halo"),
+    for mname, form in (("slab4", "collide_kernel.phi_hx.halo"),
                         ("pencil2x2", "collide_kernel.shard_x")):
         label = f"pod {mname}"
         mesh = _cuda_mesh(mname)
@@ -998,8 +1137,8 @@ def phase_pod(bw):
         fs.reset_launches()
         sh, chunks = _sharded_chunks(cfg, mesh, sh, 50, 25, label)
         counts = dict(fs.launches)
-        _want_launches(counts, label, **{form: 200,
-                                         "stream_bc_kernel.halo": 200})
+        _want_launches(counts, label, **_route(form, 200,
+                                               "stream_bc_kernel.halo"))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
         res = time_sharded(cfg, mesh, sh, bw)
@@ -1137,6 +1276,17 @@ def main():
                 plain_ms_d3q7=head["plain_ms"][k],
                 bound_ms_d3q7=head["bound_ms"][k],
                 library_ms_d3q7=head["library_ms"][k])
+            if k in ROWS_PER_COLLIDE:  # with the composed design's bytes
+                row.update(bound_ms_design=full["bound_design_ms"][k],
+                           bound_ms_design_d3q7=head["bound_design_ms"][k])
+            if k == "hartley_rows_kernel":  # the RHS rows; decode, pod
+                dec, pod_s = full["rows_decode"], pod["slab4"]
+                row.update(ms_decode=dec["ms"],
+                           library_ms_decode=dec["library_ms"],
+                           plain_ms_decode=dec["plain_ms"],
+                           ms_pod=pod_s["kernel_ms"][k],
+                           library_ms_pod=pod_s["library_ms"][k],
+                           bound_ms_pod=pod_s["bound_ms"][k])
         else:  # sharded: ek-pnp-thermal shard 0, slab 4 or pencil 2x2
             mname = "pencil2x2" if "shard_x" in k else "slab4"
             cell = sharded[mname]
@@ -1152,6 +1302,9 @@ def main():
                 plain_ms_pod=pod[mname]["plain_ms"][k],
                 bound_ms_pod=pod[mname]["bound_ms"][k],
                 rel_err_pod=pod[mname]["rel_err"][k])
+            if k in cell["bound_design_ms"]:
+                row.update(bound_ms_design=cell["bound_design_ms"][k],
+                           bound_ms_design_pod=pod[mname]["bound_design_ms"][k])
         kernels.append(row)
     report["kernels"] = kernels
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as fh:

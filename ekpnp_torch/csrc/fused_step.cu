@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel of ekpnp/pallas/fused_step.py (build_fused_step,
 // its `kernel` closure and the pl.pallas_call) in its five forms.  One
-// step of every active population: fluid f, ions h / hn, temperature g.
+// step of every active population: fluid f, ions h / hn, temperature g,
+// and the Poisson RHS, plain or transformed along x.
 //
 //   collide_kernel    one thread per node (x fastest, so a warp reads
 //                     contiguous x for every direction):
@@ -27,30 +28,29 @@
 //                     anti-bounce-back.  zerograd-top: every ion read of
 //                     post plane NZ-1 takes plane NZ-2, and the top plane
 //                     is post[d, NZ-2, y-ey, x-ex] for every d.
-//   collide_rows_kernel  the TPU kernel's x-Hartley forms, the same
-//                     per-node collide launched one block per (z, tile of
-//                     up to 8 y rows):
-//                     <FORM 1> hartley_x (fused_step.py:247-259, :984-990):
-//                     the RHS rows are collected in shared memory and
-//                     written as rows @ H, H[j, k] = cas(2 pi j k / NX);
-//                     <FORM 2> phi_hx (fused_step.py:261-268, :680-696):
-//                     the phi argument is psi_hx; the block decodes the
-//                     psi rows its E stencil reads into a shared-memory
-//                     window (psi @ H + lifting) before the collide, and
-//                     emits the RHS as FORM 1 does.  Either form is one
-//                     launch in place of collide_kernel; stream_bc_kernel
-//                     follows unchanged, so a step stays two launches.
+//   hartley_rows_kernel  the TPU kernel's x-Hartley products
+//                     (fused_step.py:247-268, :680-696, :984-990) as a
+//                     product of its own: out[r, :] = in[r, :] @ H
+//                     (+ lift(z(r))), H[j, k] = cas(2 pi j k / NX), over M
+//                     contiguous rows of NX values.  The wrapper composes
+//                     the two x-Hartley forms from it and collide_kernel:
+//                     <hartley_x> collide_kernel (plain RHS into a scratch
+//                     (NZ-2, NY, NX)), then the product on the RHS rows;
+//                     <phi_hx> the product with lift decodes psi_hx into a
+//                     phi scratch (NZ, NY, NX), each row once (a shard's two
+//                     psi halo rows too), collide_kernel reads that phi,
+//                     then the product on the RHS rows.  stream_bc_kernel
+//                     follows unchanged.
 //
 // The sharded forms (the TPU kernel's halo=True, fused_step.py:240-245,
 // :516-520, and shard_x, :294-318; host side ekpnp_torch/parallel/halo.py) run
 // on one shard's local (Q, NZ, NYl, NXl) block, with the neighbours' edge
 // data in small halo buffers in place of the local wrap:
-//   - every collide form reads phi (psi_hx for FORM 2) at y = -1 and y = NYl
-//     from two rows (NZ, NXl) of the y-neighbours, and a pencil shard's
-//     plain-RHS collide reads x = -1 and x = NXl from two columns (NZ, NYl)
-//     of the x-neighbours (PhiSrc; null halos wrap, so collide_kernel and
-//     FORM 2 serve one device and shards alike, and FORM 1 is instantiated
-//     for each, PhiGlobal on one device);
+//   - collide_kernel reads phi at y = -1 and y = NYl from two rows (NZ, NXl)
+//     of the y-neighbours (decoded from psi_hx rows by hartley_rows_kernel
+//     on the phi_hx route), and a pencil shard's collide reads x = -1 and
+//     x = NXl from two columns (NZ, NYl) of the x-neighbours (PhiSrc; null
+//     halos wrap, so one collide_kernel serves one device and shards);
 //   - stream_bc_halo_kernel pulls across a y edge from the neighbour's
 //     POST-collision edge row, exchanged after the collide and holding only
 //     the directions that pull across that edge: 9 of 27 (D3Q27), 5 of 19,
@@ -58,8 +58,8 @@
 //     the host code repairs the two wrap columns afterwards (fix_x_columns).
 // This is not the TPU's data flow (pre-collision 8-row halo blocks, halo
 // rows collided again, DMA-aligned): the two-launch split lets the post
-// rows travel instead, while the solve runs.  The one-device kernels keep
-// their own code where the shard's reads cost them time (stream, FORM 1).
+// rows travel instead, while the solve runs.  The one-device stream keeps
+// its own kernel, where the shard's reads cost it time.
 //
 // Bound: device-memory bytes.  The pair moves 1736 B/node per step with
 // every field on D3Q27 in f32 (collide: populations read + post written,
@@ -67,13 +67,16 @@
 // with D3Q7 scalars -- twice the population traffic of one fused pass.
 // Fusing the two launches into one pass is the first item of the perf
 // queue (ROADMAP.md).  Constants are folded in double on the host and cast
-// to T, as the TPU kernel's cst() does.  The x-Hartley forms add 2 NX
-// operations per RHS value and per decoded phi value (30 rows decoded per
-// 8-row tile); each block reads H (NX^2 values) from L2 once per product.
-// They are built for being right first: no tensor cores, no register
-// tiling.  On an H100 SXM (700 W) the row products run at ~6-10 TFLOP/s in
-// f32, bound by one broadcast shared-memory read per multiply-add, so the
-// phi_hx decode costs more than the solve's x stages it removes (PERF.md).
+// to T, as the TPU kernel's cst() does.  The x-Hartley products add 2 NX
+// operations per RHS value and per decoded phi value, and each sends its
+// rows through device memory once more (in and out: 2 x 67 MB per product
+// at 256^3 in f32): on the TPU the products ride the idle MXU inside the
+// step kernel, but on Hopper holding whole rows in the collide's block cost
+// it its occupancy and decoded every phi row 3.75 times (PERF.md).
+// hartley_rows_kernel is a register-tiled product on the FMA pipes (no
+// tensor cores: TF32 would leave the 1e-5 tolerance of f32, and each output
+// is summed over x in order 0..NX-1 with explicit fused multiply-adds, as
+// the plain version's kernels were, so f64 stays at 0 / <= 1e-12).
 // A shard moves the same bytes per node plus its halo: two phi rows (and
 // columns) for the collide, two post rows of 9 / 5 / 1 directions per
 // field for the stream.  The halo reads select a pointer and an index
@@ -84,8 +87,8 @@
 //
 // Plain C interface for ctypes; every entry point returns the
 // cudaGetLastError() of its launch (or -1 for an unsupported lattice pair,
-// -2 for a row-block height whose shared memory does not fit, -3 for a
-// call in the other element type).  One library per element type: built
+// -2 for a row-product tile or grid the kernel was not built with, -3 for
+// a call in the other element type).  One library per element type: built
 // with -DEKPNP_REAL=float and -DEKPNP_REAL=double, two nvcc processes side
 // by side (kernels/fused_step.py build).
 
@@ -110,7 +113,6 @@ struct HostConsts {
   double f_tscale, f_ics2, f_op, f_om, f_splus, f_sminus;
   double s_tscale, s_ics2;
   double h_op, h_om, K, hn_op, hn_om, Kn, g_op, g_om, joule;
-  double volt, volt2;           // plate potentials (phi_hx lifting profile)
   double wf[27], ws[27], mw[27], gjw[27], fwics2[27];
   double wadd[3][2][27];        // [h, hn, g][z=0, z=NZ-1][d] added at the wall
 };
@@ -122,7 +124,6 @@ struct Params {
   T inv_cfl, half_dt, dt, kappa, rhs_scale, ext_field, exf, buoy, hdx, hdy, hdz;
   T f_tscale, f_ics2, f_op, f_om, f_splus, f_sminus;
   T s_tscale, s_ics2, h_op, h_om, K, hn_op, hn_om, Kn, g_op, g_om, joule;
-  double volt, volt2;
   T wf[27], ws[27], mw[27], gjw[27], fwics2[27];
   T wadd[3][2][27];
 };
@@ -144,7 +145,6 @@ Params<T> make_params(const HostInts& I, const HostConsts& C) {
   P.h_op = T(C.h_op); P.h_om = T(C.h_om); P.K = T(C.K);
   P.hn_op = T(C.hn_op); P.hn_om = T(C.hn_om); P.Kn = T(C.Kn);
   P.g_op = T(C.g_op); P.g_om = T(C.g_om); P.joule = T(C.joule);
-  P.volt = C.volt; P.volt2 = C.volt2;
   for (int d = 0; d < 27; ++d) {
     P.wf[d] = T(C.wf[d]); P.ws[d] = T(C.ws[d]);
     P.mw[d] = T(C.mw[d]); P.gjw[d] = T(C.gjw[d]);
@@ -205,14 +205,13 @@ struct NodeMacro {
   T Ex, Ey, Ez;          // E = -grad(phi)
 };
 
-// phi (or psi_hx) read from device memory (plain and hartley_x forms, and
-// FORM 2's staging).  The E stencil reads z +- 1 in range (at) and x +- 1,
-// y +- 1 across the block's edge: there a shard reads its halo -- the rows
-// ylo / yhi (NZ, NX) at y = -1 / NY, the columns xlo / xhi (NZ, NY) at
-// x = -1 / NX -- and one device, whose halo pointers are null, wraps, as
-// the plain-RHS collide always did.  Each edge read is one compare and
-// selects of the pointer and the index, so the collide stays straight-line
-// code (branches per read made nvcc's build of this file run away).
+// phi read from device memory.  The E stencil reads z +- 1 in range (at)
+// and x +- 1, y +- 1 across the block's edge: there a shard reads its halo
+// -- the rows ylo / yhi (NZ, NX) at y = -1 / NY, the columns xlo / xhi
+// (NZ, NY) at x = -1 / NX -- and one device, whose halo pointers are null,
+// wraps.  Each edge read is one compare and selects of the pointer and the
+// index, so the collide stays straight-line code (branches per read made
+// nvcc's build of this file run away).
 template <typename T>
 struct PhiHalo {
   const T* ylo;
@@ -254,59 +253,6 @@ struct PhiSrc {
     const int wx = edge ? (DX < 0 ? nx - 1 : 0) : x + DX;
     return ld(use ? halo : phi, use ? (int64_t)z * ny + y
                                     : ((int64_t)z * ny + y) * nx + wx);
-  }
-  // row yy in -1..NY (FORM 2's staging)
-  __device__ __forceinline__ T row(int z, int yy, int x) const {
-    return yy < 0 ? y_off<-1>(z, 0, x)
-                  : (yy >= ny ? y_off<1>(z, ny - 1, x) : at(z, yy, x));
-  }
-};
-
-// phi read from device memory on one device, periodic in x and y: the
-// hartley_x form's source there (the shard's PhiSrc, compiled into the
-// row-block kernel, cost it ~6 % on the H100, PERF.md).  Takes the
-// halo argument only to be built as PhiSrc is; it has none.
-template <typename T>
-struct PhiGlobal {
-  const T* __restrict__ phi;
-  int64_t plane;
-  int ny, nx;
-  __device__ __forceinline__ PhiGlobal(const T* p, const PhiHalo<T>&, int ny_,
-                                       int nx_)
-      : phi(p), plane((int64_t)ny_ * nx_), ny(ny_), nx(nx_) {}
-  __device__ __forceinline__ T at(int z, int y, int x) const {
-    return ld(phi, z * plane + (int64_t)y * nx + x);
-  }
-  template <int DY>
-  __device__ __forceinline__ T y_off(int z, int y, int x) const {
-    return at(z, DY < 0 ? (y == 0 ? ny - 1 : y - 1)
-                        : (y == ny - 1 ? 0 : y + 1), x);
-  }
-  template <int DX>
-  __device__ __forceinline__ T x_off(int z, int y, int x) const {
-    return at(z, y, DX < 0 ? (x == 0 ? nx - 1 : x - 1)
-                           : (x == nx - 1 ? 0 : x + 1));
-  }
-};
-
-// phi read from the block's decoded shared-memory window (phi_hx form):
-// planes w0..w0+2, window row r holding phi row y0 - 1 + r; x wraps (x is
-// whole wherever this form runs).
-template <typename T>
-struct PhiWindow {
-  const T* win;
-  int w0, y0, nx, wrows;
-  __device__ __forceinline__ T at(int z, int y, int x) const {
-    return win[((z - w0) * wrows + (y - y0 + 1)) * nx + x];
-  }
-  template <int DY>
-  __device__ __forceinline__ T y_off(int z, int y, int x) const {
-    return at(z, y + DY, x);
-  }
-  template <int DX>
-  __device__ __forceinline__ T x_off(int z, int y, int x) const {
-    return at(z, y, DX < 0 ? (x == 0 ? nx - 1 : x - 1)
-                           : (x == nx - 1 ? 0 : x + 1));
   }
 };
 
@@ -502,8 +448,9 @@ __device__ __forceinline__ T collide_node(
   return rhs_v;
 }
 
-// Plain-RHS form: one thread per node, flat 128-thread blocks.  `phi`
-// carries the halo rows and columns of a shard (null on one device).
+// The collide, every form: one thread per node, flat 128-thread blocks;
+// the plain RHS (the x-Hartley forms take it through hartley_rows_kernel).
+// `phi` carries the halo rows and columns of a shard (null on one device).
 template <typename T, int QF, int QS>
 __global__ void __launch_bounds__(128) collide_kernel(
     const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
@@ -525,14 +472,26 @@ __global__ void __launch_bounds__(128) collide_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The x-Hartley forms: one block per (z, tile of up to kRowsMax y rows),
-// threads striding over the tile's nodes, x fastest, so the block holds
-// whole x rows and can take their product with the (NX, NX) cas matrix H.
+// The x-Hartley row product: out[r, :] = in[r, :] @ H (+ lift(z(r))) for M
+// contiguous rows of NX values (the RHS rows of the hartley_x form, psi_hx
+// rows decoded to phi on the phi_hx form).
+//
+// One block of 256 threads computes a BM x BN tile of the output; thread
+// (ty, tx) = (t / 16, t % 16) holds TM x 2W of it in registers: the rows
+// ty + 16 i (i < TM) and the columns tx W + c, BN / 2 + tx W + c (c < W).
+// The K loop walks x in tiles of BK: the block's rows of `in` (As, row
+// major, padded by W so the two rows a warp reads sit in other banks) and
+// H's rows (Bs) arrive by cp.async in a ring of kRowsStages tiles, two in
+// flight while the third is read as float4 / double2.  Per W values of x a
+// thread reads TM + 2W vectors from shared memory for TM 2W W fused
+// multiply-adds.  Every output is summed over x in order 0..NX-1 with
+// explicit fmadd (no split of x, no tree): one order whatever the tile or
+// grid, which keeps f64 at 0 against the plain version on every case and
+// the golden values with it.  Tiles past NX (and rows past M) are
+// zero-filled, and their 0 * 0 adds change no sum.  VEC: rows of NX values start 16-byte
+// aligned (NX % W == 0, aligned pointers), so one cp.async moves a vector;
+// otherwise one element.
 // ---------------------------------------------------------------------------
-
-constexpr int kRowsMax = 8;                        // y rows per block
-constexpr int kWinRowsMax = 3 * (kRowsMax + 2);    // decoded phi rows
-constexpr size_t kSmemMax = 232448;                // 227 KB per block
 
 __device__ __forceinline__ float fmadd(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
@@ -541,111 +500,181 @@ __device__ __forceinline__ double fmadd(double a, double b, double c) {
   return __fma_rn(a, b, c);
 }
 
-// store(r, k, sum_x src[r][x] H[x][k]) for rows r < nrows of the
-// shared-memory block src (row stride nx); thread t takes columns
-// k = t, t + blockDim, ...  H is symmetric, so H[x][k] is read coalesced
-// over k, once per block for all rows; src[r][x] is one shared-memory
-// read broadcast to the warp per multiply-add.  Explicit fused
-// multiply-adds: the sum is not the plain version's einsum order in any
-// case.
-template <int RMAX, typename T, typename Store>
-__device__ __forceinline__ void rows_times_h(const T* src, int nrows,
-                                             const T* __restrict__ H, int nx,
-                                             Store store) {
-  for (int k = threadIdx.x; k < nx; k += blockDim.x) {
-    T acc[RMAX];
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) acc[r] = T(0);
-    for (int x = 0; x < nx; ++x) {
-      const T hk = ld(H, (int64_t)x * nx + k);
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r)
-        if (r < nrows) acc[r] = fmadd(src[r * nx + x], hk, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r)
-      if (r < nrows) store(r, k, acc[r]);
-  }
+// Output tile of one block (BM rows, BN columns), x tile BK, rows per
+// thread TM, vector width W (16 bytes); BN = 2 x 16 x W.  Mirrored by
+// ROWS_TILE in kernels/fused_step.py.
+template <typename T>
+struct RowsTile;
+template <>
+struct RowsTile<float> {
+  static constexpr int BM = 128, BN = 128, BK = 16, TM = 8, W = 4;
+};
+template <>
+struct RowsTile<double> {
+  static constexpr int BM = 128, BN = 64, BK = 16, TM = 8, W = 2;
+};
+
+constexpr int kRowsThreads = 256;
+constexpr int kRowsStages = 3;
+
+template <typename T>
+constexpr size_t rows_smem_bytes() {
+  using R = RowsTile<T>;
+  return (size_t)kRowsStages * (R::BM * (R::BK + R::W) + R::BK * R::BN)
+         * sizeof(T);
 }
 
-// Shared memory of a row-block launch, in elements of T: the RHS rows
-// (hartley_x); for phi_hx the psi staging rows (reused for the RHS rows)
-// and the decoded phi window.
-inline size_t rows_smem_elems(int form, int rb, int nx) {
-  return (size_t)(form == 2 ? 2 * 3 * (rb + 2) : rb) * nx;
+// W contiguous values from shared memory as one 16-byte load, and back
+__device__ __forceinline__ void ld_vec(float* v, const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void ld_vec(double* v, const double* p) {
+  const double2 t = *reinterpret_cast<const double2*>(p);
+  v[0] = t.x; v[1] = t.y;
+}
+__device__ __forceinline__ void st_vec(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st_vec(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
-// FORM 1 (hartley_x): phi from device memory; the RHS rows of the tile are
-// collected in shared memory and written as rows @ H.
-// FORM 2 (phi_hx, implies hartley_x): `phi` is psi_hx.  The block first
-// stages the psi rows its E stencil reads -- planes w0..w0+2 (z-1..z+1,
-// clamped to 0..2 at z = 0, where plane 1's macro is recomputed, and to
-// NZ-3..NZ-1 at the top), rows y0-1..y0+rb (at most NY: the rows past the
-// tile's last one + 1 are never read) -- and decodes them as
-// psi @ H + lift(z), lift(z) = V + (V2 - V) z / (NZ-1) in double, as the
-// plain version's lifting profile.  Every node then reads phi from there.
-// On a slab shard the rows y0-1 = -1 and NY come from psi's halo rows:
-// the decode is per row, so psi rows travel and are decoded here.
-// Src: FORM 1's phi source (PhiGlobal on one device, PhiSrc on a shard);
-// FORM 2 stages psi through PhiSrc either way.
-template <typename T, int QF, int QS, int FORM, typename Src>
-__global__ void __launch_bounds__(128) collide_rows_kernel(
-    const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
-    const T* __restrict__ hn, const T* __restrict__ g,
-    const T* __restrict__ phi_, const PhiHalo<T> halo,
-    const T* __restrict__ H, T* __restrict__ pf, T* __restrict__ ph,
-    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs, int rb) {
+// BYTES from gmem to smem, asynchronously; zeros where !ok (gmem is then
+// not read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = ok ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(gmem), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(s), "l"(gmem), "n"(BYTES), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// lift: add volt + (volt2 - volt) z / (nz - 1), z = r / rows_per_z, folded
+// in double and cast to T, as the plain version's lifting profile.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kRowsThreads, 2) hartley_rows_kernel(
+    const T* __restrict__ in, const T* __restrict__ H, T* __restrict__ out,
+    int64_t m, int nx, int lift, int rows_per_z, int nz, double volt,
+    double volt2) {
+  using R = RowsTile<T>;
+  constexpr int BM = R::BM, BN = R::BN, BK = R::BK, TM = R::TM, W = R::W;
+  constexpr int LDA = BK + W;          // As row stride
+  constexpr int LW = VEC ? W : 1;      // elements per cp.async
+  constexpr int A_CH = BM * BK / LW / kRowsThreads;
+  constexpr int B_CH = BK * BN / LW / kRowsThreads;
+  static_assert(BN == 32 * W && BM == 16 * TM, "thread tile layout");
+  static_assert(A_CH * LW * kRowsThreads == BM * BK
+                && B_CH * LW * kRowsThreads == BK * BN, "copy split");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
-  const int nx = P.nx, ny = P.ny, nz = P.nz;
-  const int64_t plane = (int64_t)ny * nx;
-  const int64_t N = plane * nz;
-  const int z = blockIdx.y;
-  const int y0 = blockIdx.x * rb;
-  const int nrow = min(rb, ny - y0);
-  const int wrows = rb + 2;
-  const int w0 = min(max(z - 1, 0), nz - 3);
-  T* const win = sm;
-  T* const stage = FORM == 2 ? sm + 3 * wrows * nx : sm;
+  T* const As = reinterpret_cast<T*>(smem_raw);   // [stage][BM][LDA]
+  T* const Bs = As + kRowsStages * BM * LDA;       // [stage][BK][BN]
 
-  if constexpr (FORM == 2) {
-    const PhiSrc<T> phi(phi_, halo, ny, nx);
-    for (int i = threadIdx.x; i < 3 * wrows * nx; i += blockDim.x) {
-      const int x = i % nx, pr = i / nx;
-      const int p = pr / wrows;
-      stage[i] = phi.row(w0 + p, min(y0 - 1 + pr % wrows, ny), x);
+  const int ncol = (nx + BN - 1) / BN;
+  const int64_t m0 = (int64_t)(blockIdx.x / ncol) * BM;
+  const int n0 = (int)(blockIdx.x % ncol) * BN;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nkt = (nx + BK - 1) / BK;
+
+  auto load = [&](int kt, int slot) {
+    const int k0 = kt * BK;
+    T* const as = As + slot * BM * LDA;
+    T* const bs = Bs + slot * BK * BN;
+#pragma unroll
+    for (int j = 0; j < A_CH; ++j) {
+      const int c = tid + j * kRowsThreads;
+      const int r = c / (BK / LW), kc = (c % (BK / LW)) * LW;
+      const bool ok = m0 + r < m && k0 + kc < nx;
+      cp_async<(int)(LW * sizeof(T))>(as + r * LDA + kc,
+                               ok ? in + (m0 + r) * nx + k0 + kc : in, ok);
     }
-    __syncthreads();
-    rows_times_h<kWinRowsMax>(stage, 3 * wrows, H, nx,
-                              [&](int r, int k, T v) {
-      const int zz = w0 + r / wrows;
-      const double lift = P.volt + ((P.volt2 - P.volt) * (double)zz)
-                                   / (double)(nz - 1);
-      win[r * nx + k] = v + T(lift);
-    });
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < B_CH; ++j) {
+      const int c = tid + j * kRowsThreads;
+      const int k = c / (BN / LW), nc = (c % (BN / LW)) * LW;
+      const bool ok = k0 + k < nx && n0 + nc < nx;
+      cp_async<(int)(LW * sizeof(T))>(
+          bs + k * BN + nc, ok ? H + (int64_t)(k0 + k) * nx + n0 + nc : H,
+          ok);
+    }
+  };
+
+  T acc[TM][2 * W];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * W; ++j) acc[i][j] = T(0);
+
+#pragma unroll
+  for (int s = 0; s < kRowsStages - 1; ++s) {
+    if (s < nkt) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<kRowsStages - 2>();  // tile kt has landed
+    __syncthreads();                   // and every thread is done with kt-1
+    const int next = kt + kRowsStages - 1;
+    if (next < nkt) load(next, next % kRowsStages);
+    cp_async_commit();
+    const int slot = kt % kRowsStages;
+    const T* const as = As + slot * BM * LDA + ty * LDA;
+    const T* const bs = Bs + slot * BK * BN + tx * W;
+#pragma unroll
+    for (int kb = 0; kb < BK; kb += W) {
+      T a[TM][W];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) ld_vec(a[i], as + i * 16 * LDA + kb);
+#pragma unroll
+      for (int kk = 0; kk < W; ++kk) {
+        T b[2 * W];
+        ld_vec(b, bs + (kb + kk) * BN);
+        ld_vec(b + W, bs + (kb + kk) * BN + BN / 2);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 2 * W; ++j)
+            acc[i][j] = fmadd(a[i][kk], b[j], acc[i][j]);
+      }
+    }
   }
 
-  for (int i = threadIdx.x; i < nrow * nx; i += blockDim.x) {
-    const int r = i / nx, x = i % nx, y = y0 + r;
-    const int64_t idx = z * plane + (int64_t)y * nx + x;
-    T v;
-    if constexpr (FORM == 2) {
-      const PhiWindow<T> src{win, w0, y0, nx, wrows};
-      v = collide_node<T, QF, QS>(P, f, h, hn, g, src, pf, ph, phn, pg, z, y,
-                                  x, N, idx);
-    } else {
-      const Src src(phi_, halo, ny, nx);
-      v = collide_node<T, QF, QS>(P, f, h, hn, g, src, pf, ph, phn, pg, z, y,
-                                  x, N, idx);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t r = m0 + ty + 16 * i;
+    if (r >= m) break;  // rows ascend with i
+    T lv = T(0);
+    if (lift) {
+      const int z = (int)(r / rows_per_z);
+      lv = T(volt + ((volt2 - volt) * (double)z) / (double)(nz - 1));
     }
-    stage[i] = v;
-  }
-  __syncthreads();
-  if (z >= 1 && z <= nz - 2) {
-    T* const out = rhs + (int64_t)(z - 1) * plane + (int64_t)y0 * nx;
-    rows_times_h<kRowsMax>(stage, nrow, H, nx,
-                           [&](int r, int k, T v) { out[r * nx + k] = v; });
+    T* const o = out + r * nx;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int col = n0 + hf * (BN / 2) + tx * W;
+      T v[W];
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        v[c] = lift ? acc[i][hf * W + c] + lv : acc[i][hf * W + c];
+      if (VEC) {
+        if (col < nx) st_vec(o + col, v);
+      } else {
+#pragma unroll
+        for (int c = 0; c < W; ++c)
+          if (col + c < nx) o[col + c] = v[c];
+      }
+    }
   }
 }
 
@@ -873,28 +902,30 @@ int launch_collide(const HostInts& I, const HostConsts& C, const void* f,
   return (int)cudaGetLastError();
 }
 
-// Row-block launch of the x-Hartley forms, rb rows per block (the wrapper
-// picks rb, kernels/fused_step.py row_block_rows); -2 where rb is out of
-// range or its shared memory does not fit.
-template <typename T, int QF, int QS, int FORM, typename Src>
-int launch_collide_rows(int rb, const HostInts& I, const HostConsts& C,
-                        const void* f, const void* h, const void* hn,
-                        const void* g, const void* const* phi, const void* H,
-                        void* pf, void* ph, void* phn, void* pg, void* rhs,
-                        cudaStream_t s) {
-  const size_t smem = rows_smem_elems(FORM, rb, I.nx) * sizeof(T);
-  if (rb < 1 || rb > kRowsMax || smem > kSmemMax) return -2;
-  auto kern = collide_rows_kernel<T, QF, QS, FORM, Src>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)((I.ny + rb - 1) / rb), (unsigned)I.nz);
-  kern<<<grid, kThreads, smem, s>>>(
-      make_params<T>(I, C), (const T*)f, (const T*)h, (const T*)hn,
-      (const T*)g, (const T*)phi[0], make_halo<T>(phi), (const T*)H, (T*)pf,
-      (T*)ph, (T*)phn, (T*)pg, (T*)rhs, rb);
+// One row-product launch; bm, bn, blocks: the tile and grid the wrapper
+// computed (kernels/fused_step.py hartley_rows_grid), -2 unless they are
+// this build's.  in, out: m contiguous rows of nx values, not aliased.
+template <typename T>
+int launch_hartley_rows(int bm, int bn, int64_t blocks, const void* in,
+                        const void* H, void* out, int64_t m, int nx,
+                        int lift, int rows_per_z, int nz, double volt,
+                        double volt2, cudaStream_t s) {
+  using R = RowsTile<T>;
+  const int64_t want = ((m + R::BM - 1) / R::BM) * ((nx + R::BN - 1) / R::BN);
+  if (bm != R::BM || bn != R::BN || blocks != want || blocks < 1
+      || blocks > 0x7fffffff || (lift && rows_per_z < 1))
+    return -2;
+  const auto al = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const bool vec = nx % R::W == 0 && al(in) && al(H) && al(out);
+  auto kern = vec ? hartley_rows_kernel<T, true>
+                  : hartley_rows_kernel<T, false>;
+  const size_t smem = rows_smem_bytes<T>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)blocks, kRowsThreads, smem, s>>>(
+      (const T*)in, (const T*)H, (T*)out, m, nx, lift, rows_per_z, nz, volt,
+      volt2);
   return (int)cudaGetLastError();
 }
 
@@ -928,30 +959,6 @@ int collide_any(const HostInts& I, const HostConsts& C, const void* f,
   if (I.qf == QF_ && I.qs == QS_)                                          \
     return launch_collide<T, QF_, QS_>(I, C, f, h, hn, g, phi, pf, ph, phn, \
                                        pg, rhs, s);
-  EKPNP_LATTICE_PAIRS(EKPNP_CASE)
-#undef EKPNP_CASE
-  return -1;
-}
-
-template <typename T>
-int collide_rows_any(int form, int rb, const HostInts& I, const HostConsts& C,
-                     const void* f, const void* h, const void* hn,
-                     const void* g, const void* const* phi, const void* H,
-                     void* pf, void* ph, void* phn, void* pg, void* rhs,
-                     cudaStream_t s) {
-  // a shard passes phi's halo rows
-  const bool halo = phi[1] != nullptr;
-#define EKPNP_CASE(QF_, QS_)                                                 \
-  if (I.qf == QF_ && I.qs == QS_) {                                          \
-    if (form == 2)                                                           \
-      return launch_collide_rows<T, QF_, QS_, 2, PhiSrc<T>>(                 \
-          rb, I, C, f, h, hn, g, phi, H, pf, ph, phn, pg, rhs, s);           \
-    return halo ? launch_collide_rows<T, QF_, QS_, 1, PhiSrc<T>>(            \
-                      rb, I, C, f, h, hn, g, phi, H, pf, ph, phn, pg, rhs, s) \
-                : launch_collide_rows<T, QF_, QS_, 1, PhiGlobal<T>>(         \
-                      rb, I, C, f, h, hn, g, phi, H, pf, ph, phn, pg, rhs,   \
-                      s);                                                    \
-  }
   EKPNP_LATTICE_PAIRS(EKPNP_CASE)
 #undef EKPNP_CASE
   return -1;
@@ -1000,22 +1007,18 @@ int ekpnp_collide(int is_f64, const int* ints, const double* consts,
   return collide_any<Real>(I, C, f, h, hn, g, phi, pf, ph, phn, pg, rhs, s);
 }
 
-// form 1: hartley_x, form 2: phi_hx (`phi` is psi_hx); rb y rows per
-// block.  H: the (NX, NX) cas matrix in the tensors' type.  phi as for
-// ekpnp_collide, with no x halo (x is whole).  Returns -2 if rb is out of
-// range or its shared memory does not fit.
-int ekpnp_collide_rows(int is_f64, int form, int rb, const int* ints,
-                       const double* consts, const void* f, const void* h,
-                       const void* hn, const void* g, const void* const* phi,
-                       const void* H, void* pf, void* ph, void* phn, void* pg,
-                       void* rhs, void* stream) {
-  const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
-  const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (form != 1 && form != 2) return -1;
+// out[r, :] = in[r, :] @ H (+ lift) over m rows of nx values, H the
+// (nx, nx) cas matrix; all three in the tensors' type.  lift != 0: add
+// volt + (volt2 - volt) z / (nz - 1), z = r / rows_per_z.  bm, bn, blocks:
+// the wrapper's tile and grid, checked against this build's (-2).
+int ekpnp_hartley_rows(int is_f64, int bm, int bn, long long blocks,
+                       const void* in, const void* H, void* out, long long m,
+                       int nx, int lift, int rows_per_z, int nz, double volt,
+                       double volt2, void* stream) {
   if (is_f64 != kIsF64) return -3;
-  return collide_rows_any<Real>(form, rb, I, C, f, h, hn, g, phi, H, pf, ph,
-                                phn, pg, rhs, s);
+  return launch_hartley_rows<Real>(bm, bn, blocks, in, H, out, m, nx, lift,
+                                   rows_per_z, nz, volt, volt2,
+                                   reinterpret_cast<cudaStream_t>(stream));
 }
 
 // post: {post, lo, hi} for f, h, hn, g in turn (PostSrc), lo / hi null

@@ -5,29 +5,33 @@ Replaces the TPU kernel `build_fused_step` of ekpnp/pallas/fused_step.py
 of every active population (collide, fluid bounce-back, periodic pull
 stream, scalar wall BCs, E from phi, and the Poisson RHS), with the RHS
 plain, or already transformed along x (`hartley_x`), and phi taken plain
-or as psi_hx and decoded in the kernel (`phi_hx`); on one device, or on
+or as psi_hx and decoded on the card (`phi_hx`); on one device, or on
 one shard of a mesh (`halo`: y-slab; `shard_x`: pencil), where the
 neighbours' edge data come in as halo tensors (`PhiHalo` for the collide,
 post-collision `rows` for the stream; parallel/halo.py exchanges them).
 
 Design (csrc/fused_step.cu): two launches per step, x fastest.  The
-collide launch writes the post-collision populations into a scratch set of
-state size (the fluid's reflected pre-collision populations at the plates)
-and the RHS: `collide_kernel` (plain RHS, one thread per node) or
-`collide_rows_kernel` (the x-Hartley forms, one block per z and tile of y
-rows, so the block can take each row's product with the (NX, NX) cas
-matrix H in shared memory).  `stream_bc_kernel` pulls from the scratch set
-and applies the scalar wall BCs.  The order is the plain step's exactly
-(ekpnp_torch/step.py).  The TPU kernel's lane padding, strip sizing, VMEM
-knobs and its EKPNP_HXRHS / EKPNP_PHIHX switches have no counterpart: a
-CUDA thread indexes any NX and NY, and the form is an argument.
+collide launch (`collide_kernel`, one thread per node) writes the
+post-collision populations into a scratch set of state size (the fluid's
+reflected pre-collision populations at the plates) and the plain RHS.
+`stream_bc_kernel` pulls from the scratch set and applies the scalar wall
+BCs.  The order is the plain step's exactly (ekpnp_torch/step.py).  The
+x-Hartley forms are composed here from `collide_kernel` and the row product
+`hartley_rows_kernel` (`hartley_rows`: rows @ H, H the (NX, NX) cas matrix,
+register-tiled on the FMA pipes): hartley_x takes the product of the RHS
+rows after the collide; phi_hx first decodes psi_hx into phi (the product
+plus the lifting profile, each row once, a shard's two psi halo rows too).
+The TPU kernel's lane padding, strip sizing, VMEM knobs and its
+EKPNP_HXRHS / EKPNP_PHIHX switches have no counterpart: a CUDA thread
+indexes any NX and NY, and the form is an argument.
 
 Bound: device-memory bytes.  Per node and step the pair moves 1736 B with
 every field on D3Q27 in f32 (776 B with D3Q7 scalars): twice the
 population traffic of one fused pass (872 / 392 B).  Fusing the two
 launches is the first item of the perf queue.  The x-Hartley forms add
-2 NX operations per RHS value and per decoded phi value (30 phi rows per
-8-row tile) and one read of H from L2 per block and product.
+2 NX operations per RHS value and per decoded phi value, and send the
+rows they transform through device memory once more (read and written by
+the product).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` of the
 source in this checkout into `ekpnp_torch/_build/`, one library per
@@ -35,10 +39,12 @@ element type (-DEKPNP_REAL=float / double, two nvcc processes started
 together), keyed by a hash of the source and flags, at first use; loaded
 with ctypes.  A failed build or a launch error raises.
 
-`fused_step` dispatches on the tensors' device: CUDA tensors launch the
-kernels, CPU tensors run the plain version `fused_step_reference`.  There
-is no fallback from the card to the plain version.  `launches` counts the
-launches of each kernel form; it is changed nowhere else.
+`fused_step` dispatches on the tensors' device, launch by launch: CUDA
+tensors launch the kernels, CPU tensors run each launch's plain version
+(`collide_reference` with the plain RHS, `hartley_rows_reference`,
+`stream_bc_reference`), so the CPU runs the composition the card runs.
+There is no fallback from the card to the plain version.  `launches`
+counts the launches of each kernel form; it is changed nowhere else.
 """
 from __future__ import annotations
 
@@ -60,19 +66,20 @@ from ..parallel.fft import _hartley_matrix, hartley_x_local
 from ..state import State
 from ..step import PostCollision, collide_and_reflect, stream_and_bcs
 
-# the collide forms (plain RHS, hartley_x, phi_hx) and the stream launch,
-# on one device; then the same collide forms on a y-slab shard (.halo), the
-# plain-RHS collide on a pencil shard (.shard_x), and the shards' stream
-# launch (.halo: stream_bc_halo_kernel; on a pencil the wrap-column
-# repair of parallel/halo.py follows)
-KERNELS = ("collide_kernel", "collide_rows_kernel.hartley_x",
-           "collide_rows_kernel.phi_hx", "stream_bc_kernel",
-           "collide_kernel.halo", "collide_rows_kernel.hartley_x.halo",
-           "collide_rows_kernel.phi_hx.halo", "collide_kernel.shard_x",
+# the collide launch of each form (plain RHS, hartley_x, phi_hx), the row
+# product the x-Hartley forms add (every launch, any form), and the stream
+# launch, on one device; then the collide launch of the same forms on a
+# y-slab shard (.halo), the plain-RHS collide on a pencil shard
+# (.shard_x), and the shards' stream launch (.halo: stream_bc_halo_kernel;
+# on a pencil the wrap-column repair of parallel/halo.py follows)
+KERNELS = ("collide_kernel", "collide_kernel.hartley_x",
+           "collide_kernel.phi_hx", "hartley_rows_kernel", "stream_bc_kernel",
+           "collide_kernel.halo", "collide_kernel.hartley_x.halo",
+           "collide_kernel.phi_hx.halo", "collide_kernel.shard_x",
            "stream_bc_kernel.halo")
 _COLLIDE_FORMS = {(False, False): "collide_kernel",
-                  (True, False): "collide_rows_kernel.hartley_x",
-                  (True, True): "collide_rows_kernel.phi_hx"}
+                  (True, False): "collide_kernel.hartley_x",
+                  (True, True): "collide_kernel.phi_hx"}
 # launches of each kernel form on the card, counted where it is launched
 launches = {name: 0 for name in KERNELS}
 
@@ -91,13 +98,12 @@ _INTS = ("nx", "ny", "nz", "qf", "qs", "ek", "nspec", "thermal", "cbc",
 _SCALARS = ("inv_cfl", "half_dt", "dt", "kappa", "rhs_scale", "ext_field",
             "exf", "buoy", "hdx", "hdy", "hdz", "f_tscale", "f_ics2", "f_op",
             "f_om", "f_splus", "f_sminus", "s_tscale", "s_ics2", "h_op", "h_om",
-            "K", "hn_op", "hn_om", "Kn", "g_op", "g_om", "joule", "volt",
-            "volt2")
+            "K", "hn_op", "hn_om", "Kn", "g_op", "g_om", "joule")
 _ARRAYS27 = ("wf", "ws", "mw", "gjw", "fwics2")
 _CBC = {"noflux": 0, "injection": 1, "zerograd-top": 2}
-# row-block launch limits, csrc kRowsMax / kSmemMax
-ROWS_MAX = 8
-SMEM_MAX = 232448
+# csrc RowsTile: the output tile (rows, columns) one block of
+# hartley_rows_kernel computes, by element size
+ROWS_TILE = {4: (128, 128), 8: (128, 64)}
 
 # the element type of each library, by the wrappers' is_f64
 REALS = {0: "float", 1: "double"}
@@ -208,13 +214,16 @@ def _load():
         lib = ctypes.CDLL(path)
         lib.ekpnp_abi.argtypes = [ip, ip]
         lib.ekpnp_abi.restype = ci
-        # pointers: f, h, hn, g, phi + halo (array), [H], post x 4, [rhs];
+        # pointers: f, h, hn, g, phi + halo (array), post x 4, rhs;
         # stream_bc: {post, lo, hi} x 4 (array), out x 4
         lib.ekpnp_collide.argtypes = [ci, vp, vp] + [vp] * 10 + [vp]
         lib.ekpnp_collide.restype = ci
-        lib.ekpnp_collide_rows.argtypes = ([ci, ci, ci, vp, vp] + [vp] * 11
-                                           + [vp])
-        lib.ekpnp_collide_rows.restype = ci
+        # is_f64, bm, bn, blocks, in, H, out, m, nx, lift, rows_per_z, nz,
+        # volt, volt2, stream
+        ll, dbl = ctypes.c_longlong, ctypes.c_double
+        lib.ekpnp_hartley_rows.argtypes = ([ci, ci, ci, ll, vp, vp, vp, ll]
+                                           + [ci] * 4 + [dbl, dbl, vp])
+        lib.ekpnp_hartley_rows.restype = ci
         lib.ekpnp_stream_bc.argtypes = [ci, vp, vp] + [vp] * 5 + [vp]
         lib.ekpnp_stream_bc.restype = ci
         n_i, n_c = ctypes.c_int(), ctypes.c_int()
@@ -262,7 +271,7 @@ def pack_constants(cfg: Config):
         h_op=dt * om["omega_c_plus"], h_om=dt * om["omega_c_minus"], K=p.K,
         hn_op=dt * om["omega_cn_plus"], hn_om=dt * om["omega_cn_minus"],
         Kn=p.Kn, g_op=dt * om["omega_T_plus"], g_om=dt * om["omega_T_minus"],
-        joule=p.joule, volt=p.voltage, volt2=p.voltage2,
+        joule=p.joule,
     )
 
     def pad27(a):
@@ -313,25 +322,29 @@ def resolve_hartley_x(cfg: Config, hartley_x: Optional[bool] = None,
     return bool(hartley_x)
 
 
-def row_block_rows(nx: int, itemsize: int, phi_hx: bool) -> int:
-    """y rows per block of collide_rows_kernel: 8, halved while the
-    block's shared memory (csrc rows_smem_elems: 8 RHS rows, or for phi_hx
-    two windows of 3 x (rows + 2) rows, each of NX values) exceeds the
-    227 KB a block may use."""
-    rb = ROWS_MAX
-    while True:
-        rows = 2 * 3 * (rb + 2) if phi_hx else rb
-        if rows * nx * itemsize <= SMEM_MAX:
-            return rb
-        if rb == 1:
-            raise ValueError(f"NX={nx} is too wide for the row-block "
-                             f"collide's shared memory")
-        rb //= 2
+def hartley_rows_grid(m: int, nx: int, itemsize: int):
+    """(tile rows bm, tile columns bn, blocks) of a hartley_rows_kernel
+    launch over m rows of nx values: block b computes the output rows
+    (b // nc) bm .. + bm and the columns (b % nc) bn .. + bn, clipped to
+    (m, nx), nc = ceil(nx / bn).  The kernel refuses any other."""
+    bm, bn = ROWS_TILE[itemsize]
+    return bm, bn, -(-m // bm) * -(-nx // bn)
 
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path; compared with the kernels on the card)
 # ---------------------------------------------------------------------------
+
+def hartley_rows_reference(a, *, lift: Optional[Config] = None):
+    """Plain version of hartley_rows_kernel: `a @ H` along the last axis
+    (x) of a (NZ', NY, NX) block or (NZ', NX) rows (`hartley_x_local`).
+    lift: the config whose lifting profile is added per z (the first axis,
+    NZ of the grid): the psi_hx decode `phi_from_psi_hx`."""
+    a3 = a if a.dim() == 3 else a[:, None]
+    out = (phi_from_psi_hx(lift, a3) if lift is not None
+           else hartley_x_local(a3))
+    return out.reshape(a.shape)
+
 
 def collide_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None, *,
                       hartley_x: Optional[bool] = None, phi_hx: bool = False,
@@ -343,11 +356,11 @@ def collide_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None, *,
     phi_halo: a shard's halo; E reads it in place of the local wrap."""
     hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
     if phi_hx:
-        phi = phi_from_psi_hx(cfg, phi)
+        phi = hartley_rows_reference(phi, lift=cfg)
         if phi_halo is not None:
-            row = lambda r: phi_from_psi_hx(cfg, r[:, None])[:, 0]
-            phi_halo = phi_halo._replace(ylo=row(phi_halo.ylo),
-                                         yhi=row(phi_halo.yhi))
+            phi_halo = phi_halo._replace(
+                ylo=hartley_rows_reference(phi_halo.ylo, lift=cfg),
+                yhi=hartley_rows_reference(phi_halo.yhi, lift=cfg))
     state = State(f=f, h=h, hn=hn, g=g, phi=phi, t=f.new_zeros(()))
     E = (efield(cfg, phi, phi_halo)
          if phi_halo is not None and cfg.physics.enable_ek else None)
@@ -355,7 +368,7 @@ def collide_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None, *,
     rhs = (charge_rhs(cfg, macro.charge, macro.chargen)
            if cfg.physics.enable_ek else None)
     if hartley_x:
-        rhs = hartley_x_local(rhs)
+        rhs = hartley_rows_reference(rhs)
     return post.f, post.h, post.hn, post.g, rhs
 
 
@@ -525,43 +538,102 @@ def _prep(cfg: Config, tensors: dict, like):
             torch.cuda.current_stream(like.device).cuda_stream)
 
 
-def collide(cfg: Config, f, h=None, hn=None, g=None, phi=None, post=None, *,
-            hartley_x: Optional[bool] = None, phi_hx: bool = False,
-            phi_halo: Optional[PhiHalo] = None):
-    """Collide + fluid bounce-back + RHS: (post_f, post_h, post_hn, post_g,
-    rhs).  The form follows `resolve_hartley_x`: the plain RHS
-    (collide_kernel), rhs @ H (hartley_x) or, with `phi` holding psi_hx,
-    phi decoded in the kernel (phi_hx).  On a shard (`cfg` its local
-    grid), `phi_halo` holds the neighbours' rows of phi (psi_hx) and, on a
-    pencil, columns: the .halo / .shard_x forms.  CUDA tensors launch that
-    form's kernel, CPU tensors run `collide_reference`.  `post` may hold a
-    preallocated population set."""
-    hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
-    _check_phi_halo(cfg, phi_halo, hartley_x, f.device, f.dtype)
+# the cas matrix of each (NX, dtype, device), made once: making it per
+# launch (numpy, then a host-to-device copy, which waits for the
+# stream) would stall the host in the step loop
+_H = {}
+
+
+def _cas(nx: int, like: torch.Tensor) -> torch.Tensor:
+    key = (nx, like.dtype, like.device)
+    if key not in _H:
+        _H[key] = _hartley_matrix(nx, like.dtype, like.device)
+    return _H[key]
+
+
+def hartley_rows(a, *, lift: Optional[Config] = None):
+    """The x-Hartley row product: `a @ H` along the last axis (x) of a
+    contiguous (NZ', NY, NX) block or (NZ', NX) rows, H the (NX, NX) cas
+    matrix; with `lift` (a config), plus its lifting profile per z (the
+    first axis, the grid's NZ): the psi_hx decode.  CUDA tensors launch
+    hartley_rows_kernel, CPU tensors run `hartley_rows_reference`."""
+    if a.dim() not in (2, 3):
+        raise ValueError(f"hartley_rows: wants (NZ, [NY,] NX), got "
+                         f"{tuple(a.shape)}")
+    if lift is not None and (a.shape[0] != lift.grid.nz
+                             or a.shape[-1] != lift.grid.nx):
+        raise ValueError(f"hartley_rows: lifted rows {tuple(a.shape)} do "
+                         f"not match the grid {lift.grid.shape}")
+    if a.device.type == "cpu":
+        return hartley_rows_reference(a, lift=lift)
+    if a.device.type != "cuda" or a.dtype not in (torch.float32,
+                                                  torch.float64):
+        raise ValueError(f"hartley_rows: unsupported {a.dtype} on {a.device}")
+    if not a.is_contiguous():
+        raise ValueError("hartley_rows: the rows are not contiguous")
+    nx = a.shape[-1]
+    m = a.numel() // nx
+    is_f64 = int(a.dtype == torch.float64)
+    bm, bn, blocks = hartley_rows_grid(m, nx, a.element_size())
+    out = torch.empty_like(a)
+    p = lift.physics if lift is not None else None
+    with torch.cuda.device(a.device):
+        _launch(_load()[is_f64].ekpnp_hartley_rows, "hartley_rows_kernel",
+                is_f64, bm, bn, blocks, _ptr(a), _ptr(_cas(nx, a)), _ptr(out),
+                m, nx, int(lift is not None), m // a.shape[0], a.shape[0],
+                p.voltage if p else 0.0, p.voltage2 if p else 0.0,
+                torch.cuda.current_stream(a.device).cuda_stream)
+    return out
+
+
+def _collide_plain_rhs(cfg: Config, name: str, f, h, hn, g, phi, post,
+                       phi_halo):
+    """The collide launch with the plain RHS (collide_kernel, counted as
+    `name`), or its plain version for CPU tensors."""
     if f.device.type == "cpu":
-        _check(cfg, dict(f=f, h=h, hn=hn, g=g, phi=phi), f.device, f.dtype)
-        return collide_reference(cfg, f, h, hn, g, phi, hartley_x=hartley_x,
-                                 phi_hx=phi_hx, phi_halo=phi_halo)
+        return collide_reference(cfg, f, h, hn, g, phi, hartley_x=False,
+                                 phi_halo=phi_halo)
     lib, ints, consts, is_f64, stream = _prep(
         cfg, dict(f=f, h=h, hn=hn, g=g, phi=phi), f)
     post = post if post is not None else _empty_like_fields(cfg, f)
     rhs = (torch.empty((cfg.grid.nz - 2,) + cfg.grid.shape[1:], dtype=f.dtype,
                        device=f.device) if cfg.physics.enable_ek else None)
-    name = collide_form(hartley_x, phi_hx, phi_halo)
     halo = phi_halo if phi_halo is not None else PhiHalo(None, None)
-    ins = (*map(_ptr, (f, h, hn, g)), _ptrs(phi, *halo))
-    outs = (*map(_ptr, post), _ptr(rhs))
     with torch.cuda.device(f.device):
-        if hartley_x:
-            H = _hartley_matrix(cfg.grid.nx, f.dtype, f.device)
-            rb = row_block_rows(cfg.grid.nx, f.element_size(), phi_hx)
-            _launch(lib.ekpnp_collide_rows, name, is_f64, 2 if phi_hx else 1,
-                    rb, ints.ctypes.data, consts.ctypes.data, *ins, _ptr(H),
-                    *outs, stream)
-        else:
-            _launch(lib.ekpnp_collide, name, is_f64, ints.ctypes.data,
-                    consts.ctypes.data, *ins, *outs, stream)
+        _launch(lib.ekpnp_collide, name, is_f64, ints.ctypes.data,
+                consts.ctypes.data, *map(_ptr, (f, h, hn, g)),
+                _ptrs(phi, *halo), *map(_ptr, post), _ptr(rhs), stream)
     return (*post, rhs)
+
+
+def collide(cfg: Config, f, h=None, hn=None, g=None, phi=None, post=None, *,
+            hartley_x: Optional[bool] = None, phi_hx: bool = False,
+            phi_halo: Optional[PhiHalo] = None):
+    """Collide + fluid bounce-back + RHS: (post_f, post_h, post_hn, post_g,
+    rhs).  The form follows `resolve_hartley_x`: the plain RHS, rhs @ H
+    (hartley_x: the collide, then `hartley_rows` on the RHS rows) or, with
+    `phi` holding psi_hx, phi decoded first (phi_hx: `hartley_rows` with
+    the lifting profile, then as hartley_x).  On a shard (`cfg` its local
+    grid), `phi_halo` holds the neighbours' rows of phi (psi_hx, decoded
+    the same way) and, on a pencil, columns: the .halo / .shard_x forms.
+    Each launch runs its kernel on CUDA tensors and its plain version on
+    CPU tensors; the collide launch counts under the form's name.  `post`
+    may hold a preallocated population set."""
+    hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
+    _check_phi_halo(cfg, phi_halo, hartley_x, f.device, f.dtype)
+    _check(cfg, dict(f=f, h=h, hn=hn, g=g, phi=phi), f.device, f.dtype)
+    name = collide_form(hartley_x, phi_hx, phi_halo)
+    if phi_hx:
+        phi = hartley_rows(phi, lift=cfg)
+        if phi_halo is not None:
+            phi_halo = phi_halo._replace(
+                ylo=hartley_rows(phi_halo.ylo, lift=cfg),
+                yhi=hartley_rows(phi_halo.yhi, lift=cfg))
+    *pops, rhs = _collide_plain_rhs(cfg, name, f, h, hn, g, phi, post,
+                                    phi_halo)
+    if hartley_x:
+        rhs = hartley_rows(rhs)
+    return (*pops, rhs)
 
 
 def stream_bc(cfg: Config, pf, ph=None, phn=None, pg=None, out=None,

@@ -4,11 +4,11 @@ single device).
 Each step runs the fused step (kernels/fused_step.py: CUDA kernels on the
 card, their plain version on the CPU) and then the spectral solve of the
 emitted RHS for the next phi.  Wherever EK is on and fft_method != "fft",
-the kernel emits the RHS already transformed along x (hartley_x) and the
-solve skips its forward x stage (`rhs_hx`).  `multi_step` goes one step
+the fused step emits the RHS already transformed along x (hartley_x) and
+the solve skips its forward x stage (`rhs_hx`).  `multi_step` goes one step
 further wherever `phi_hx_capable` holds: the chunk carries phi as psi_hx,
-encoded once and decoded once, the kernel decodes phi itself (phi_hx) and
-the solve runs no x stage at all.  State goes in and out with real phi
+encoded once and decoded once, the fused step decodes phi itself (phi_hx)
+and the solve runs no x stage at all.  State goes in and out with real phi
 either way.
 """
 from __future__ import annotations
@@ -37,7 +37,7 @@ def step_fused(cfg: Config, state: State, out=None, post=None):
 
 def step_fused_hx(cfg: Config, state: State, out=None, post=None) -> State:
     """One step in x-Hartley phi encoding: state.phi holds psi_hx
-    (phi = H_x(psi) + lifting), the kernel decodes it (phi_hx) and emits
+    (phi = H_x(psi) + lifting), the fused step decodes it (phi_hx) and emits
     the RHS x-transformed, and the solve returns the next psi_hx."""
     f1, h1, hn1, g1, rhs = fused_step(cfg, state.f, state.h, state.hn,
                                       state.g, state.phi, out=out, post=post,

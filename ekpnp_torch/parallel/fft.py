@@ -195,5 +195,5 @@ def hartley_y(a, mesh=None):
 
 def hartley_x_local(a):
     """One unnormalized x-Hartley stage (`a @ H` along the last axis); the
-    plain version of the fused step's in-kernel x products."""
+    plain version of the fused step's x products (hartley_rows_kernel)."""
     return _apply_hartley(a, 2)

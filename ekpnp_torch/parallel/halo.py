@@ -158,7 +158,7 @@ def step_halo(cfg: Config, mesh: Mesh, state: State, phi_hx: bool = False,
               out=None, post=None, overlap: bool = True) -> State:
     """One step of a sharded state: per-shard fused step with the halo
     exchange, then the distributed solve.  phi_hx: state.phi holds psi_hx
-    (slab meshes; the halo rows travel as psi and the kernel decodes them).
+    (slab meshes; the halo rows travel as psi and the collide decodes them).
     out / post: per shard, preallocated population sets for the streamed
     state and the post-collision scratch (kernels.step._chunk)."""
     p = cfg.physics

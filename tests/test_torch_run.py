@@ -136,8 +136,8 @@ def test_plain_x_hartley_forms_transform_the_plain_form():
 
 def test_form_resolution_phi_hx_gate_and_row_blocks():
     import ekpnp_torch
-    from ekpnp_torch.kernels.fused_step import (resolve_hartley_x,
-                                                row_block_rows)
+    from ekpnp_torch.kernels.fused_step import (ROWS_TILE, hartley_rows_grid,
+                                                resolve_hartley_x)
     from ekpnp_torch.kernels.step import phi_hx_capable
 
     small = dict(nx=16, ny=8, nz=9)
@@ -155,9 +155,19 @@ def test_form_resolution_phi_hx_gate_and_row_blocks():
         resolve_hartley_x(ek, hartley_x=False, phi_hx=True)
     assert phi_hx_capable(ek) and phi_hx_capable(auto)
     assert not phi_hx_capable(fft) and not phi_hx_capable(fluid)
-    # rows per block: 8, halved until the shared memory fits 227 KB
-    assert row_block_rows(256, 4, True) == row_block_rows(256, 8, True) == 8
-    assert row_block_rows(1024, 8, True) == 2
-    assert row_block_rows(4096, 8, False) == 4
-    with pytest.raises(ValueError, match="too wide"):
-        row_block_rows(4096, 8, True)
+    # the row product's tiles and grid: every output of m rows of nx
+    # values once, for m not a multiple of the tile (the kernel's block b
+    # takes tile rows b // nc and tile columns b % nc, clipped)
+    assert ROWS_TILE == {4: (128, 128), 8: (128, 64)}
+    for itemsize in (4, 8):
+        for nx in (16, 50, 256, 512):
+            for m in (1, 127, 255 * 7 + 3):
+                bm, bn, blocks = hartley_rows_grid(m, nx, itemsize)
+                assert (bm, bn) == ROWS_TILE[itemsize]
+                nc = -(-nx // bn)
+                hits = np.zeros((m, nx), dtype=np.int64)
+                for b in range(blocks):
+                    r0, c0 = (b // nc) * bm, (b % nc) * bn
+                    assert r0 < m and c0 < nx  # no idle block
+                    hits[r0:r0 + bm, c0:c0 + bn] += 1
+                assert (hits == 1).all(), (itemsize, nx, m)
