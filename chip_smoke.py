@@ -13,11 +13,14 @@ printing the final line, if any phase fails:
      counts no multiple of its tile (plain and lifted, aligned and not);
      then physics cases A-J and the reference's own 50x8x51, f64 and f32,
      3 steps each, every collide form (plain RHS; with EK on also
-     hartley_x and phi_hx, psi encoded from the case's phi):
+     hartley_x and phi_hx, psi encoded from the case's phi) and the fused
+     pass of every form (fused_pass_kernel on the plain collide's
+     post-collision set):
      max|d|/max|ref| per field <= 1e-12 (f64) / 1e-5 (f32);
   4. golden: `reference`, f64, initialize + 60 steps of the default
-     multi_step (the phi_hx route, its launches counted), the golden
-     values of tests/test_golden.py at rtol 1e-9;
+     multi_step (one chunk: a collide, 59 fused passes and a stream on the
+     phi_hx route, its launches counted), the golden values of
+     tests/test_golden.py at rtol 1e-9;
   5. main path at full size through the port's API: `ek-pnp-thermal`
      (256x256x257, f32, every field D3Q27): PB init (501 iterations, with
      pb_omega 0.02: the preset's 0.05 diverges at this NZ) + 100
@@ -26,11 +29,14 @@ printing the final line, if any phase fails:
      bench headline (256x256x257, f32, D3Q7 scalars) the same way for
      50 + 50 steps, and 40 steps of it with fft_method "fft" (the
      plain-RHS form's path).  Launch counts are zeroed before each run and
-     must equal the steps, per form (and the row products per step); the
-     state must stay finite; every form, stream_bc, the row product (next
-     to torch.matmul on the same rows) and the three solves are timed by
-     CUDA events and each kernel is held to its plain version on that
-     run's state;
+     must be, per chunk, one collide and one stream of the run's form and
+     a fused pass for every other step (and the row products per step);
+     the state must stay finite; 20 steps of the fused chunk must equal 20
+     two-launch steps (step_fused_hx) bit for bit; every collide form, the
+     fused pass of every form, stream_bc, the row product (next to
+     torch.matmul on the same rows) and the three solves are timed by CUDA
+     events and each kernel is held to its plain version on that run's
+     state;
   6. the CLI with the perturbed first step, 10 steps on the card: rc 0,
      finite series;
 then the sharded time loop (ekpnp_torch/parallel), its shards all on the
@@ -61,8 +67,9 @@ one card (a mesh may hold a device more than once):
   7. one JSON line describing each CUDA kernel form;
   8. the final line {"ok": true, "device": {...}}.
 Launch counts are zeroed before each main-path run and read after it: a
-sharded run must show steps x shards launches of its route's forms and
-none of any other.  Details go to smoke_out/chip_smoke.json.
+sharded run must show steps x shards launches of its route's forms (a
+collide and a stream per step and shard) and none of any other.  Details
+go to smoke_out/chip_smoke.json.
 """
 import json
 import os
@@ -112,6 +119,9 @@ REPLACES = {
     "collide_kernel": "ekpnp/pallas/fused_step.py:1321",
     "collide_kernel.hartley_x": "ekpnp/pallas/fused_step.py:984",
     "collide_kernel.phi_hx": "ekpnp/pallas/fused_step.py:680",
+    "fused_pass_kernel": "ekpnp/pallas/fused_step.py:1321",
+    "fused_pass_kernel.hartley_x": "ekpnp/pallas/fused_step.py:984",
+    "fused_pass_kernel.phi_hx": "ekpnp/pallas/fused_step.py:680",
     "hartley_rows_kernel": "ekpnp/pallas/fused_step.py:984",
     "stream_bc_kernel": "ekpnp/pallas/fused_step.py:1321",
     "collide_kernel.halo": "ekpnp/pallas/fused_step.py:516",
@@ -120,8 +130,9 @@ REPLACES = {
     "collide_kernel.shard_x": "ekpnp/pallas/fused_step.py:521",
     "stream_bc_kernel.halo": "ekpnp/pallas/fused_step.py:570",
 }
-# row products per collide launch of each form: the RHS (hartley_x); psi
-# and the RHS (phi_hx), and on a slab shard psi's two halo rows
+# row products per step of each collide form (its collide or fused pass):
+# the RHS (hartley_x); psi and the RHS (phi_hx), and on a slab shard psi's
+# two halo rows
 ROWS_PER_COLLIDE = {"collide_kernel.hartley_x": 1, "collide_kernel.phi_hx": 2,
                     "collide_kernel.hartley_x.halo": 1,
                     "collide_kernel.phi_hx.halo": 4}
@@ -136,6 +147,7 @@ F32_SHARDED = 1e-4
 FORMS = (("collide_kernel", dict(hartley_x=False)),
          ("collide_kernel.hartley_x", dict(hartley_x=True)),
          ("collide_kernel.phi_hx", dict(phi_hx=True)))
+
 # the row product's widths in phase 3: case J's, the collide cases', an odd
 # one, the reference's, 256^3's and pod's
 ROWS_NX = (10, 16, 25, 50, 256, 512)
@@ -147,6 +159,16 @@ PEAK = {"float32": 67e12, "float64": 34e12}  # H100 SXM, outside tensor cores
 
 def log(*a):
     print(*a, flush=True)
+
+
+def fused_name(form):
+    """The fused pass of a collide form."""
+    return form.replace("collide_kernel", "fused_pass_kernel")
+
+
+def fmt_err(e):
+    """An error as logged: 0 where it is exactly 0."""
+    return "0" if e == 0 else f"{e:.1e}"
 
 
 def rel_err(a, b):
@@ -224,26 +246,37 @@ def phase_build():
     info = fs.build_info
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", info["log"])]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", info["log"])]
-    # registers per kernel (and form / halo instantiation) and type, max
-    # over the lattice pairs
-    fam = {}
+    # registers and spill stores per kernel (and the row product's vec
+    # instantiation) and type, max over the lattice pairs
+    fam, fam_spill, each = {}, {}, {}
     for name in re.findall(r"Compiling entry function '(\w+)'", info["log"]):
-        m = re.search(r"(hartley_rows_kernel|collide_kernel|"
+        m = re.search(r"(hartley_rows_kernel|collide_kernel|fused_pass_kernel|"
                       r"stream_bc_halo_kernel|stream_bc_kernel)"
-                      r"I([fd])(?:Lb([01])E)?", name)
-        used = re.search(r"Used (\d+) registers",
-                         info["log"][info["log"].index(name):])
+                      r"I([fd])(?:Li(\d+)ELi(\d+)E)?(?:Lb([01])E)?", name)
+        rest = info["log"][info["log"].index(name):]
+        used = re.search(r"Used (\d+) registers", rest)
+        spill = re.search(r"(\d+) bytes spill stores", rest)
         if m and used:
-            key = (m.group(1) + (".vec" if m.group(3) == "1" else "")
+            key = (m.group(1) + (".vec" if m.group(5) == "1" else "")
                    + f" {m.group(2)}")
-            fam[key] = max(fam.get(key, 0), int(used.group(1)))
+            r, sp = int(used.group(1)), int(spill.group(1)) if spill else 0
+            fam[key] = max(fam.get(key, 0), r)
+            fam_spill[key] = max(fam_spill.get(key, 0), sp)
+            pair = f" {m.group(3)}/{m.group(4)}" if m.group(3) else ""
+            each[key + pair] = (r, sp)
     log(f"build: {info['seconds']:.1f} s nvcc, {secs:.1f} s build+load; "
         f"{len(regs)} kernel instantiations, registers max {max(regs or [0])}, "
-        f"spill stores max {max(spills or [0])} B; registers by kernel: "
-        + ", ".join(f"{k} {v}" for k, v in sorted(fam.items())))
+        f"spill stores max {max(spills or [0])} B; registers / spill stores "
+        f"(B) by kernel: " + ", ".join(f"{k} {v}/{fam_spill[k]}"
+                                       for k, v in sorted(fam.items())))
+    log("  fused_pass_kernel by type and lattice pair QF/QS: " + ", ".join(
+        f"{k.replace('fused_pass_kernel ', '')} {r}/{sp}"
+        for k, (r, sp) in sorted(each.items())
+        if k.startswith("fused_pass_kernel")))
     return {"nvcc_s": info["seconds"], "load_s": secs,
             "registers_max": max(regs or [0]), "spill_max": max(spills or [0]),
-            "registers": fam, "ptxas": info["log"]}
+            "registers": fam, "spill_stores": fam_spill,
+            "instantiations": each, "ptxas": info["log"]}
 
 
 def _form_inputs(cfg, ins, kw):
@@ -329,6 +362,13 @@ def phase_kernels_vs_plain():
                         checks += [("stream_bc_kernel", ko, ro),
                                    ("step", (*ko, kp[4]), whole)]
                         plain, plain_out = kp, ko
+                    # the fused pass of this form on the plain collide's
+                    # post-collision set (the stream of this round and the
+                    # collide of the next, with this round's phi / psi)
+                    checks.append((
+                        fused_name(kname),
+                        fs.fused_pass(cfg, *plain[:4], x[4], **kw),
+                        fs.fused_pass_reference(cfg, *plain[:4], x[4], **kw)))
                     for lab, ks, rs in checks:
                         for fld, a, b in zip(("f", "h", "hn", "g", "rhs"), ks, rs):
                             if b is None:
@@ -341,17 +381,24 @@ def phase_kernels_vs_plain():
                 st = st._replace(f=plain_out[0], h=plain_out[1],
                                  hn=plain_out[2], g=plain_out[3], phi=phi)
             torch.cuda.synchronize()
-            log(f"  case {case:8s} {dtype}: " + " ".join(
-                f"{lab.split('.')[-1].replace('_kernel', '')}:{f} {e:.1e}"
-                for (lab, f), e in errs.items() if lab != "stream_bc_kernel"))
+            short = lambda lab: (lab.replace("_kernel", "")
+                                 .replace("collide.", "")
+                                 .replace("fused_pass", "pass"))
+            by_lab = {}
+            for (lab, _), e in errs.items():
+                by_lab[lab] = max(by_lab.get(lab, 0.0), e)
+            log(f"  case {case:8s} {dtype} (max over fields): " + " ".join(
+                f"{short(lab)} {fmt_err(e)}" for lab, e in by_lab.items()))
             for (lab, fld), e in errs.items():
                 if e > TOL[dtype]:
                     raise SystemExit(f"chip_smoke: {case} {dtype} {lab} {fld} "
                                      f"rel err {e:.3e} > {TOL[dtype]}")
                 if lab != "step":
                     worst[(dtype, lab)] = max(worst.get((dtype, lab), 0.0), e)
-    log("kernels vs plain (the row product, every form): all cases within "
-        "1e-12 (f64) / 1e-5 (f32)")
+    log("kernels vs plain (the row product, every collide form and fused "
+        "pass): all cases within 1e-12 (f64) / 1e-5 (f32); f64 max "
+        + ", ".join(f"{k} {fmt_err(v)}" for (d, k), v in sorted(worst.items())
+                    if d == "float64"))
     return worst
 
 
@@ -387,12 +434,19 @@ def _golden_devs(cfg, state, label):
     return devs
 
 
-def _route(form, collides, stream="stream_bc_kernel"):
-    """The launches of `collides` collides of `form`, their row products
-    and as many streams."""
-    want = {form: collides, stream: collides}
+def _route(form, steps, stream="stream_bc_kernel", chunks=None):
+    """The launches of `steps` steps of collide form `form` and their row
+    products: on one device in `chunks` chunks, a collide and a stream per
+    chunk and a fused pass of the form for every other step; on shards
+    (chunks None), a collide and a stream per step."""
+    if chunks is None:
+        want = {form: steps, stream: steps}
+    else:
+        want = {form: chunks, stream: chunks}
+        if steps > chunks:
+            want[fused_name(form)] = steps - chunks
     if ROWS_PER_COLLIDE.get(form):
-        want["hartley_rows_kernel"] = ROWS_PER_COLLIDE[form] * collides
+        want["hartley_rows_kernel"] = ROWS_PER_COLLIDE[form] * steps
     return want
 
 
@@ -418,7 +472,7 @@ def phase_golden():
     fs.reset_launches()
     state = multi_step(cfg, state, 60)
     _want_launches(dict(fs.launches), "golden run (x-Hartley route)",
-                   **_route("collide_kernel.phi_hx", 60))
+                   **_route("collide_kernel.phi_hx", 60, chunks=1))
     return _golden_devs(cfg, state,
                         "golden (reference, f64, 60 steps, phi_hx route)")
 
@@ -505,11 +559,16 @@ def time_rows(rows, lift=None):
 
 def _chunks(cfg, state, steps, every, run, label):
     """`run(cfg, state, n)` in chunks of `every` steps, a series point after
-    each; returns (state, seconds per step of each chunk)."""
+    each; returns (state, seconds per step of each chunk).  `state` may be
+    a one-element list, which gives the state up: the caller then holds no
+    reference to the donated first input (it would keep a population set
+    alive through the run)."""
     import torch
 
     from ekpnp_torch.diagnostics import series_point
 
+    if isinstance(state, list):
+        state = state.pop()
     chunks, done = [], 0
     while done < steps:
         n = min(every, steps - done)
@@ -524,10 +583,34 @@ def _chunks(cfg, state, steps, every, run, label):
     return state, chunks
 
 
-def _expect_launches(label, counts, form, steps):
-    """The run launched `form` and stream_bc_kernel once per step, the
-    form's row products, and no other collide form."""
-    _want_launches(counts, label, **_route(form, steps))
+def _expect_launches(label, counts, form, steps, chunks):
+    """The run launched `form` and stream_bc_kernel once per chunk, the
+    form's fused pass for every other step, the form's row products, and
+    no other kernel form."""
+    _want_launches(counts, label, **_route(form, steps, chunks=chunks))
+
+
+def fused_vs_two_launch(cfg, state, steps):
+    """max |d| over the fields between `steps` steps of the default
+    multi_step (one chunk: a collide, fused passes, a stream) and as many
+    two-launch steps (collide, stream) of the same route, step_fused_hx
+    between one encode and one decode, from copies of `state`; fails
+    unless 0."""
+    from ekpnp_torch.kernels.step import multi_step, step_fused_hx
+    from ekpnp_torch.ops.poisson import phi_from_psi_hx, psi_hx_from_phi
+
+    a = multi_step(cfg, _clone(state), steps)
+    b = _clone(state)
+    b = b._replace(phi=psi_hx_from_phi(cfg, b.phi))
+    for _ in range(steps):
+        b = step_fused_hx(cfg, b)
+    b = b._replace(phi=phi_from_psi_hx(cfg, b.phi))
+    d = max(float((x - y).abs().max()) for x, y in zip(a[:5], b[:5])
+            if x is not None)
+    if d != 0:
+        raise SystemExit(f"chip_smoke: {steps} fused-chunk steps differ from "
+                         f"the two-launch steps by {d!r}")
+    return d
 
 
 def drive(label, cfg, make, steps, every, other_steps, bw):
@@ -535,9 +618,10 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     route) for `steps` steps, then one chunk of `other_steps` with the
     other phi_hx setting (multi_step_rhs: hartley_x form, real phi between
     steps); counts zeroed just before each run and read just after.  Then
-    every collide form, stream_bc, the row product (on the RHS rows; the
-    decode on psi) and the solves are timed on the final state and held to
-    their plain versions."""
+    20 steps of the fused chunk against 20 two-launch steps, and every
+    collide form, the fused pass of every form, stream_bc, the row product
+    (on the RHS rows; the decode on psi) and the solves are timed on the
+    final state and held to their plain versions."""
     import torch
 
     from ekpnp_torch.diagnostics import check_finite
@@ -554,25 +638,32 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     torch.cuda.reset_peak_memory_stats()
     fs.reset_launches()
     t0 = time.perf_counter()
-    state = make()
+    start = [make()]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    state, chunks = _chunks(cfg, state, steps, every, multi_step, label)
+    peak_init_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    state, chunks = _chunks(cfg, start, steps, every, multi_step, label)
     counts = dict(fs.launches)
-    _expect_launches(label, counts, "collide_kernel.phi_hx", steps)
+    _expect_launches(label, counts, "collide_kernel.phi_hx", steps,
+                     len(chunks))
     fs.reset_launches()
     state, other = _chunks(cfg, state, other_steps, other_steps,
                            multi_step_rhs, label + " phi_hx off")
     counts_other = dict(fs.launches)
     _expect_launches(label + " phi_hx off", counts_other,
-                     "collide_kernel.hartley_x", other_steps)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                     "collide_kernel.hartley_x", other_steps, len(other))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the time loop's
     finite = check_finite(state)
     if not finite:
         raise SystemExit(f"chip_smoke: {label}: non-finite state")
     step_ms = chunks[-1] * 1e3
     step_ms_off = other[-1] * 1e3
     mlups = cfg.grid.num_nodes / (chunks[-1] * 1e6)
+    chunk_d = fused_vs_two_launch(cfg, state, 20)
+    log(f"  {label}: 20 steps, fused chunk vs two-launch steps: max |d| "
+        f"{fmt_err(chunk_d)}")
+    torch.cuda.empty_cache()
 
     # per-launch times (CUDA events), plain versions and the library x stage
     nb = lambda ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
@@ -596,6 +687,24 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
         rhs = post[4]
         if kname in ROWS_PER_COLLIDE:
             design_bytes[kname] = bytes_[kname] + _design_bytes(kname, rhs, x[4])
+        # the fused pass of the form on this post-collision set: the bytes
+        # and operations of the collide's function
+        fp = fused_name(kname)
+        got = fs.fused_pass(cfg, *post[:4], x[4], **kw)
+        ref = fs.fused_pass_reference(cfg, *post[:4], x[4], **kw)
+        errs[fp] = max(rel_err(a, b) for a, b in zip(got, ref)
+                       if b is not None)
+        abs_errs[fp] = max(float((a - b).abs().max())
+                           for a, b in zip(got, ref) if b is not None)
+        del ref
+        ms[fp] = _events_ms(lambda: fs.fused_pass(cfg, *post[:4], x[4],
+                                                  out=got[:4], **kw), 10)
+        del got
+        bytes_[fp], ops[fp], lib_ms[fp] = bytes_[kname], ops[kname], None
+        if kname in design_bytes:
+            design_bytes[fp] = design_bytes[kname]
+        plain_ms[fp] = _events_ms(
+            lambda: fs.fused_pass_reference(cfg, *post[:4], x[4], **kw), 2)
         if kname == "collide_kernel":
             solve_ms["plain"] = _events_ms(lambda: poisson_phi_from_rhs(cfg, rhs), 10)
             lib_ms[kname] = None
@@ -641,8 +750,10 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
         bound[k] = (max(tb, to), "bytes" if tb >= to else "operations")
         if k in design_bytes:  # the composed forms' own floor
             bound_design[k] = max(design_bytes[k] / bw * 1e3, to)
+    two = {fused_name(k): ms[k] + ms["stream_bc_kernel"] for k, _ in FORMS}
     res = dict(label=label, grid=list(cfg.grid.shape), dtype=cfg.run.dtype,
                scalars=cfg.scalar_lat.name, steps=steps, init_s=init_s,
+               chunk_vs_two_launch=chunk_d, two_launch_ms=two,
                step_ms=step_ms, chunk_ms=[c * 1e3 for c in chunks], mlups=mlups,
                step_ms_phi_hx_off=step_ms_off, other_steps=other_steps,
                launches=counts, launches_phi_hx_off=counts_other,
@@ -651,16 +762,20 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
                bound_by={k: v[1] for k, v in bound.items()},
                bound_design_ms=bound_design, rows_decode=decode,
                bytes=bytes_, ops=ops, rel_err=errs, abs_err=abs_errs,
-               peak_gb=peak_gb, finite=finite)
+               peak_gb=peak_gb, peak_init_gb=peak_init_gb, finite=finite)
     log(f"{label}: {mlups:.1f} MLUPS, {step_ms:.3f} ms/step (phi_hx route), "
         f"{step_ms_off:.3f} ms/step (phi_hx off: hartley_x form), init "
-        f"{init_s:.2f} s, peak {peak_gb:.2f} GB")
+        f"{init_s:.2f} s, peak {peak_gb:.2f} GB in the time loop "
+        f"({peak_init_gb:.2f} GB through the start state)")
     for k in ms:
         lib = f", library {lib_ms[k]:.3f}" if lib_ms.get(k) is not None else ""
         des = (f"; composed floor {bound_design[k]:.3f}"
                if k in bound_design else "")
+        two_l = (f", the two launches it replaces {two[k]:.3f} ms"
+                 if k in two else "")
         log(f"  {k}: {ms[k]:.3f} ms (bound {bound[k][0]:.3f}, {bound[k][1]}"
-            f"{des}), plain {plain_ms[k]:.2f} ms{lib}, rel err {errs[k]:.2e}")
+            f"{des}), plain {plain_ms[k]:.2f} ms{lib}{two_l}, rel err "
+            f"{errs[k]:.2e}")
     log(f"  {rk} decode (psi, lifted, {decode['rows']} rows): "
         f"{decode['ms']:.3f} ms, torch.matmul {decode['library_ms']:.3f} ms, "
         f"plain {decode['plain_ms']:.3f} ms, rel err {decode['rel_err']:.2e}")
@@ -681,7 +796,7 @@ def drive_plain_rhs(label, cfg, state, steps, every):
     fs.reset_launches()
     state, chunks = _chunks(cfg, state, steps, every, multi_step, label)
     counts = dict(fs.launches)
-    _expect_launches(label, counts, "collide_kernel", steps)
+    _expect_launches(label, counts, "collide_kernel", steps, len(chunks))
     if not check_finite(state):
         raise SystemExit(f"chip_smoke: {label}: non-finite state")
     torch.cuda.empty_cache()
@@ -1276,9 +1391,12 @@ def main():
                 plain_ms_d3q7=head["plain_ms"][k],
                 bound_ms_d3q7=head["bound_ms"][k],
                 library_ms_d3q7=head["library_ms"][k])
-            if k in ROWS_PER_COLLIDE:  # with the composed design's bytes
+            if k in full["bound_design_ms"]:  # the composed design's bytes
                 row.update(bound_ms_design=full["bound_design_ms"][k],
                            bound_ms_design_d3q7=head["bound_design_ms"][k])
+            if k in full["two_launch_ms"]:  # a fused pass
+                row.update(two_launch_ms=full["two_launch_ms"][k],
+                           two_launch_ms_d3q7=head["two_launch_ms"][k])
             if k == "hartley_rows_kernel":  # the RHS rows; decode, pod
                 dec, pod_s = full["rows_decode"], pod["slab4"]
                 row.update(ms_decode=dec["ms"],

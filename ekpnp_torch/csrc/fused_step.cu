@@ -5,6 +5,10 @@
 // step of every active population: fluid f, ions h / hn, temperature g,
 // and the Poisson RHS, plain or transformed along x.
 //
+// The one-device time loop (kernels/step.py _chunk) cuts a chunk of n
+// steps at the stream: one collide_kernel, n - 1 fused_pass_kernel
+// launches, one stream_bc_kernel, a solve after each collide.
+//
 //   collide_kernel    one thread per node (x fastest, so a warp reads
 //                     contiguous x for every direction):
 //                     moments -> E = -grad(phi) from phi's six neighbours
@@ -14,11 +18,22 @@
 //                     recomputed by the z=0 thread) -> TRT + Guo for the
 //                     fluid, TRT with drift u + K E for the ions, TRT (+
 //                     Joule source) for the temperature.  It writes the
-//                     post-collision populations into a scratch set; at
-//                     z=0 and NZ-1 the fluid's reflected PRE-collision
-//                     populations instead (moving-wall term at the top).
-//                     It also writes the Poisson RHS -kappa (c+ - c-) / eps
-//                     for z = 1..NZ-2 from the pre-collision ion moments.
+//                     post-collision populations; at z=0 and NZ-1 the
+//                     fluid's reflected PRE-collision populations instead
+//                     (moving-wall term at the top).  It also writes the
+//                     Poisson RHS -kappa (c+ - c-) / eps for z = 1..NZ-2
+//                     from the pre-collision ion moments.  A chunk's first
+//                     launch; every step of a sharded loop.
+//   fused_pass_kernel one thread per node: the stream of step k-1 and the
+//                     collide of step k.  It pulls step k-1's post-collision
+//                     set into the node by stream_bc_kernel's rules (Pulled)
+//                     -- step k's pre-collision populations -- and runs
+//                     collide_kernel's body on them with phi_k: step k's
+//                     post-collision set and the RHS of its pre-collision
+//                     moments.  Exact, because that RHS and the phi the
+//                     collide takes are the two-launch step's; every node
+//                     runs the same operations in the same order, so a
+//                     chunk equals its two-launch steps bit for bit.
 //   stream_bc_kernel  one thread per node: pull post[d, z-ez, y-ey, x-ex]
 //                     with periodic wrap in all three axes (the fluid's
 //                     z-wrap through the reflected wall planes is the
@@ -27,25 +42,26 @@
 //                     noflux / injection / zerograd-top, temperature
 //                     anti-bounce-back.  zerograd-top: every ion read of
 //                     post plane NZ-1 takes plane NZ-2, and the top plane
-//                     is post[d, NZ-2, y-ey, x-ex] for every d.
+//                     is post[d, NZ-2, y-ey, x-ex] for every d.  A chunk's
+//                     last launch.
 //   hartley_rows_kernel  the TPU kernel's x-Hartley products
 //                     (fused_step.py:247-268, :680-696, :984-990) as a
 //                     product of its own: out[r, :] = in[r, :] @ H
 //                     (+ lift(z(r))), H[j, k] = cas(2 pi j k / NX), over M
 //                     contiguous rows of NX values.  The wrapper composes
-//                     the two x-Hartley forms from it and collide_kernel:
-//                     <hartley_x> collide_kernel (plain RHS into a scratch
-//                     (NZ-2, NY, NX)), then the product on the RHS rows;
-//                     <phi_hx> the product with lift decodes psi_hx into a
-//                     phi scratch (NZ, NY, NX), each row once (a shard's two
-//                     psi halo rows too), collide_kernel reads that phi,
-//                     then the product on the RHS rows.  stream_bc_kernel
-//                     follows unchanged.
+//                     the two x-Hartley forms from it and the collide (or
+//                     the fused pass): <hartley_x> the plain RHS into a
+//                     scratch (NZ-2, NY, NX), then the product on the RHS
+//                     rows; <phi_hx> the product with lift decodes psi_hx
+//                     into a phi scratch (NZ, NY, NX), each row once (a
+//                     shard's two psi halo rows too), the collide or pass
+//                     reads that phi, then the product on the RHS rows.
 //
 // The sharded forms (the TPU kernel's halo=True, fused_step.py:240-245,
 // :516-520, and shard_x, :294-318; host side ekpnp_torch/parallel/halo.py) run
 // on one shard's local (Q, NZ, NYl, NXl) block, with the neighbours' edge
-// data in small halo buffers in place of the local wrap:
+// data in small halo buffers in place of the local wrap, collide and
+// stream every step:
 //   - collide_kernel reads phi at y = -1 and y = NYl from two rows (NZ, NXl)
 //     of the y-neighbours (decoded from psi_hx rows by hartley_rows_kernel
 //     on the phi_hx route), and a pencil shard's collide reads x = -1 and
@@ -59,31 +75,39 @@
 // This is not the TPU's data flow (pre-collision 8-row halo blocks, halo
 // rows collided again, DMA-aligned): the two-launch split lets the post
 // rows travel instead, while the solve runs.  The one-device stream keeps
-// its own kernel, where the shard's reads cost it time.
+// its own kernel, where the shard's reads cost it time.  A fused pass on a
+// shard would pull across the y edges from the exchanged rows: a source
+// in place of PullSrc (see StateSrc / PullSrc / StagedSrc below).
 //
-// Bound: device-memory bytes.  The pair moves 1736 B/node per step with
-// every field on D3Q27 in f32 (collide: populations read + post written,
-// phi read, rhs written; stream: post read + populations written), 776 B
-// with D3Q7 scalars -- twice the population traffic of one fused pass.
-// Fusing the two launches into one pass is the first item of the perf
-// queue (ROADMAP.md).  Constants are folded in double on the host and cast
-// to T, as the TPU kernel's cst() does.  The x-Hartley products add 2 NX
-// operations per RHS value and per decoded phi value, and each sends its
-// rows through device memory once more (in and out: 2 x 67 MB per product
-// at 256^3 in f32): on the TPU the products ride the idle MXU inside the
-// step kernel, but on Hopper holding whole rows in the collide's block cost
-// it its occupancy and decoded every phi row 3.75 times (PERF.md).
-// hartley_rows_kernel is a register-tiled product on the FMA pipes (no
-// tensor cores: TF32 would leave the 1e-5 tolerance of f32, and each output
-// is summed over x in order 0..NX-1 with explicit fused multiply-adds, as
-// the plain version's kernels were, so f64 stays at 0 / <= 1e-12).
-// A shard moves the same bytes per node plus its halo: two phi rows (and
-// columns) for the collide, two post rows of 9 / 5 / 1 directions per
-// field for the stream.  The halo reads select a pointer and an index
-// (PhiSrc, pull) and the slot comes from a table (edge_slot): a first
-// version with a branch per read and a counting loop per slot had nvcc
-// still compiling after 14 minutes; this one takes about one per element
-// type.
+// Bound: device-memory bytes.  A fused pass moves 872 B/node with every
+// field on D3Q27 in f32 (step k-1's post-collision set read, step k's
+// written, phi read, rhs written), 392 B with D3Q7 scalars; the collide +
+// stream pair it replaces moved 1736 / 776 B (a post-collision scratch set
+// written and read back).  Each value is pulled once; the pass reads it
+// twice (the moments, then the TRT), so fused_pass_kernel stages what each
+// thread pulls into shared memory first (StagedSrc: cp.async of single
+// elements, since a pull is misaligned by ex; 128 nodes x 108 values =
+// 55 KB a block all-D3Q27 f32, dynamic shared memory), which puts all of a
+// thread's loads in flight without holding registers and serves both reads
+// from shared memory.  A direct version reading device memory twice (the
+// collide's way) took nearly twice as long (PERF.md).
+// Constants are folded in double on the host and cast to T, as the TPU
+// kernel's cst() does.  The x-Hartley products add 2 NX operations per RHS
+// value and per decoded phi value, and each sends its rows through device
+// memory once more (in and out: 2 x 67 MB per product at 256^3 in f32):
+// on the TPU the products ride the idle MXU inside the step kernel, but on
+// Hopper holding whole rows in the collide's block cost it its occupancy
+// and decoded every phi row 3.75 times (PERF.md).  hartley_rows_kernel is
+// a register-tiled product on the FMA pipes (no tensor cores: TF32 would
+// leave the 1e-5 tolerance of f32, and each output is summed over x in
+// order 0..NX-1 with explicit fused multiply-adds, as the plain version's
+// kernels were, so f64 stays at 0 / <= 1e-12).  A shard moves the same
+// bytes per node plus its halo: two phi rows (and columns) for the
+// collide, two post rows of 9 / 5 / 1 directions per field for the
+// stream.  The halo reads select a pointer and an index (PhiSrc, pull) and
+// the slot comes from a table (edge_slot): a first version with a branch
+// per read and a counting loop per slot had nvcc still compiling after 14
+// minutes; this one takes about one per element type.
 //
 // Plain C interface for ctypes; every entry point returns the
 // cudaGetLastError() of its launch (or -1 for an unsupported lattice pair,
@@ -187,14 +211,134 @@ __device__ __forceinline__ T ld(const T* __restrict__ p, int64_t i) {
   return __ldg(p + i);
 }
 
-template <int Q, typename T>
-__device__ __forceinline__ T moment0(const T* __restrict__ a, int64_t N,
-                                     int64_t idx) {
+template <int Q, typename T, typename V>
+__device__ __forceinline__ T moment0(const Params<T>& P, const V& v) {
   T m = T(0);
 #pragma unroll
-  for (int d = 0; d < Q; ++d) m += ld(a, d * N + idx);
+  for (int d = 0; d < Q; ++d) m += v(P, d);
   return m;
 }
+
+// Where the collide reads a node's pre-collision populations.  A source's
+// view(P, k, z, y, x, N) is field k's (0 f, 1 h, 2 hn, 3 g) populations at
+// node (z, y, x); a view's (P, d) reads direction d.  The collide body
+// (node_macro, trt_field, collide_node) is the same for every source.
+//   StateSrc  (collide_kernel): the state itself, at the node.
+//   PullSrc   the previous step's post-collision set, streamed into the
+//             node as stream_bc_kernel streams it (fused_pass_kernel's
+//             plane-1 reads for the z=0 wall velocity).
+//   StagedSrc (fused_pass_kernel): the same values, copied by the thread
+//             into its shared-memory slots first.
+// A later source may pull across a shard's y edges from the neighbours'
+// post-collision rows (PostSrc) in place of PullSrc's wrap.
+template <typename T>
+struct AtNode {
+  const T* p;
+  int64_t N, idx;
+  __device__ __forceinline__ T operator()(const Params<T>&, int d) const {
+    return ld(p, d * N + idx);
+  }
+};
+
+template <typename T>
+struct StateSrc {
+  const T* pop[4];
+  __device__ __forceinline__ AtNode<T> view(const Params<T>& P, int k, int z,
+                                            int y, int x, int64_t N) const {
+    return AtNode<T>{pop[k], N, ((int64_t)z * P.ny + y) * P.nx + x};
+  }
+};
+
+// Direction d of one field at one node after the stream (stream_bc_kernel's
+// rules, read in place): post[d, z - ez, y - ey, x - ex] with the periodic
+// wrap -- the fluid everywhere (its z wrap passes through the reflected
+// wall planes the collide wrote), a scalar off its walls; zerograd-top: an
+// ion read of plane NZ-1 takes NZ-2, and the ions' top plane pulls every
+// direction from NZ-2.  At a scalar's wall node the reflected post value
+// at the node, (-)post[opp d, z, y, x] + wadd (scalar_wall).  One select
+// of the index per read and one of the value, no branch.
+template <typename T>
+struct Pulled {
+  const T* p;
+  int64_t N, idx;
+  int64_t zo[3];     // offset of the source plane, by ez + 1
+  int yo[3], xo[3];  // of the source row (y NX), column, by ey + 1, ex + 1
+  bool wall;         // a scalar's wall node: reflected at the node
+  int k, s;          // scalar field (0 h, 1 hn, 2 g), wall (0 z=0, 1 top)
+  __device__ __forceinline__ int64_t src(int d) const {
+    const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
+    return wall ? dir_opp(d) * N + idx
+                : d * N + zo[ez + 1] + yo[ey + 1] + xo[ex + 1];
+  }
+  // the wall rule on the value read at src(d)
+  __device__ __forceinline__ T fix(const Params<T>& P, int d, T v) const {
+    return wall ? (P.wneg[k] != 0 ? -v : v) + P.wadd[k][s][d] : v;
+  }
+  __device__ __forceinline__ T operator()(const Params<T>& P, int d) const {
+    return fix(P, d, ld(p, src(d)));
+  }
+};
+
+template <typename T>
+struct PullSrc {
+  const T* post[4];
+  __device__ __forceinline__ Pulled<T> view(const Params<T>& P, int k, int z,
+                                            int y, int x, int64_t N) const {
+    const int64_t plane = (int64_t)P.ny * P.nx;
+    const bool top = z == P.nz - 1;
+    const bool zg = (k == 1 || k == 2) && P.cbc == 2;
+    Pulled<T> v;
+    v.p = post[k];
+    v.N = N;
+    v.idx = z * plane + (int64_t)y * P.nx + x;
+    v.wall = k > 0 && (z == 0 || top) && !(zg && top);
+    v.k = k > 0 ? k - 1 : 0;
+    v.s = z == 0 ? 0 : 1;
+    const int zs[3] = {top ? 0 : z + 1, z, z == 0 ? P.nz - 1 : z - 1};
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      v.zo[i] = (zg && (top || zs[i] == P.nz - 1) ? P.nz - 2 : zs[i]) * plane;
+    v.yo[0] = (y == P.ny - 1 ? 0 : y + 1) * P.nx;
+    v.yo[1] = y * P.nx;
+    v.yo[2] = (y == 0 ? P.ny - 1 : y - 1) * P.nx;
+    v.xo[0] = x == P.nx - 1 ? 0 : x + 1;
+    v.xo[1] = x;
+    v.xo[2] = x == 0 ? P.nx - 1 : x - 1;
+    return v;
+  }
+};
+
+constexpr int kThreads = 128;
+
+// The thread's own slots in shared memory: slot (base + d) of field k at
+// stride kThreads (a warp reads 32 consecutive words), holding the value
+// read at src(d); the wall rule applies on the read.
+template <typename T>
+struct Staged {
+  Pulled<T> at;
+  T* s;
+  __device__ __forceinline__ T operator()(const Params<T>& P, int d) const {
+    return at.fix(P, d, s[d * kThreads]);
+  }
+};
+
+// First slot of field k: f, then h, hn, g as active.
+template <typename T, int QF, int QS>
+__device__ __forceinline__ int slot_base(const Params<T>& P, int k) {
+  const int nh = P.ek ? QS : 0, nhn = P.nspec == 2 ? QS : 0;
+  return k == 0 ? 0 : (k == 1 ? QF : (k == 2 ? QF + nh : QF + nh + nhn));
+}
+
+template <typename T, int QF, int QS>
+struct StagedSrc {
+  PullSrc<T> pull;
+  T* slots;  // this thread's first slot
+  __device__ __forceinline__ Staged<T> view(const Params<T>& P, int k, int z,
+                                            int y, int x, int64_t N) const {
+    return Staged<T>{pull.view(P, k, z, y, x, N),
+                     slots + slot_base<T, QF, QS>(P, k) * kThreads};
+  }
+};
 
 // Pre-collision macroscopic state of one node.
 template <typename T>
@@ -256,18 +400,15 @@ struct PhiSrc {
   }
 };
 
-template <typename T, int QF, int QS, typename Phi>
+template <typename T, int QF, int QS, typename Src, typename Phi>
 __device__ __forceinline__ void node_macro(
-    const Params<T>& P, const T* __restrict__ f, const T* __restrict__ h,
-    const T* __restrict__ hn, const T* __restrict__ g,
-    const Phi& phi, int z, int y, int x, int64_t N,
-    NodeMacro<T>& o) {
-  const int64_t plane = (int64_t)P.ny * P.nx;
-  const int64_t idx = z * plane + (int64_t)y * P.nx + x;
+    const Params<T>& P, const Src& src, const Phi& phi, int z, int y, int x,
+    int64_t N, NodeMacro<T>& o) {
+  const auto vf = src.view(P, 0, z, y, x, N);
   T rho = T(0), mx = T(0), my = T(0), mz = T(0);
 #pragma unroll
   for (int d = 0; d < QF; ++d) {
-    const T v = ld(f, d * N + idx);
+    const T v = vf(P, d);
     rho += v;
     const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
     if (ex > 0) mx += v; else if (ex < 0) mx -= v;
@@ -285,8 +426,8 @@ __device__ __forceinline__ void node_macro(
     o.Ey = (phi.template y_off<-1>(z, y, x)
             - phi.template y_off<1>(z, y, x)) * P.hdy;
     o.Ez = (phi.at(zc - 1, y, x) - phi.at(zc + 1, y, x)) * P.hdz;
-    o.c = moment0<QS>(h, N, idx);
-    if (P.nspec == 2) o.cn = moment0<QS>(hn, N, idx);
+    o.c = moment0<QS>(P, src.view(P, 1, z, y, x, N));
+    if (P.nspec == 2) o.cn = moment0<QS>(P, src.view(P, 2, z, y, x, N));
     const T q = P.kappa * (o.c - o.cn);
     fx = q * (o.Ex + P.ext_field) + P.exf;
     fy = q * o.Ey;
@@ -297,7 +438,7 @@ __device__ __forceinline__ void node_macro(
     fz = T(0);
   }
   if (P.thermal) {
-    o.tm = moment0<QS>(g, N, idx);
+    o.tm = moment0<QS>(P, src.view(P, 3, z, y, x, N));
     fz = fz + P.buoy * o.tm;
   }
   o.rho = rho;
@@ -338,14 +479,14 @@ __device__ __forceinline__ T guo_dir(int d, const Params<T>& P, T ux, T uy,
 //         [+ dt w S_iso].
 // Built with --fmad=false, so the f64 kernel repeats the plain version's
 // roundings and the golden values hold through it.
-template <int Q, bool FORCE, bool ISO, typename T>
+template <int Q, bool FORCE, bool ISO, typename T, typename V>
 __device__ __forceinline__ void trt_field(
-    const T* __restrict__ in, T* __restrict__ out, int64_t N, int64_t idx,
+    const V& in, T* __restrict__ out, int64_t N, int64_t idx,
     const T* w, T m, T vx, T vy, T vz, T tscale, T ics2, T op, T om,
     const Params<T>& P, T fx, T fy, T fz, T S) {
   const T omusq = T(1) - (T(0.5) * ((vx * vx + vy * vy) + vz * vz)) * ics2;
 
-  const T p0 = ld(in, idx);
+  const T p0 = in(P, 0);
   T o0 = p0 - op * (p0 - feq_dir(0, w[0] * m, omusq, vx, vy, vz, tscale));
   if (FORCE) o0 = o0 + P.dt * (P.f_splus * guo_dir(0, P, vx, vy, vz, fx, fy, fz));
   if (ISO) o0 = o0 + P.gjw[0] * S;
@@ -353,7 +494,7 @@ __device__ __forceinline__ void trt_field(
 #pragma unroll
   for (int i = 1; i < Q; i += 2) {
     const int j = i + 1;
-    const T pi = ld(in, i * N + idx), pj = ld(in, j * N + idx);
+    const T pi = in(P, i), pj = in(P, j);
     const T wm = w[i] * m;
     const T fi = feq_dir(i, wm, omusq, vx, vy, vz, tscale);
     const T fj = feq_dir(j, wm, omusq, vx, vy, vz, tscale);
@@ -381,20 +522,22 @@ __device__ __forceinline__ void trt_field(
 
 // Collide one node: writes its post-collision populations (the reflected
 // pre-collision fluid at the plates) and returns its plain Poisson RHS
-// value -kappa (c+ - c-) / eps (0 without EK).
-template <typename T, int QF, int QS, typename Phi>
+// value -kappa (c+ - c-) / eps (0 without EK).  `src` gives the node's
+// pre-collision populations, `src1` those of plane 1 for the z=0 thread's
+// wall velocity.
+template <typename T, int QF, int QS, typename Src, typename Src1,
+          typename Phi>
 __device__ __forceinline__ T collide_node(
-    const Params<T>& P, const T* __restrict__ f, const T* __restrict__ h,
-    const T* __restrict__ hn, const T* __restrict__ g, const Phi& phi,
+    const Params<T>& P, const Src& src, const Src1& src1, const Phi& phi,
     T* __restrict__ pf, T* __restrict__ ph, T* __restrict__ phn,
     T* __restrict__ pg, int z, int y, int x, int64_t N, int64_t idx) {
   NodeMacro<T> m;
-  node_macro<T, QF, QS>(P, f, h, hn, g, phi, z, y, x, N, m);
+  node_macro<T, QF, QS>(P, src, phi, z, y, x, N, m);
   T ux, uy, uz;
   if (z == 0) {
     // wall velocity extrapolated from plane 1's numerator, local wall rho
     NodeMacro<T> m1;
-    node_macro<T, QF, QS>(P, f, h, hn, g, phi, 1, y, x, N, m1);
+    node_macro<T, QF, QS>(P, src1, phi, 1, y, x, N, m1);
     ux = -m1.nx / m.rho;
     uy = -m1.ny / m.rho;
     uz = -m1.nz / m.rho;
@@ -404,43 +547,46 @@ __device__ __forceinline__ T collide_node(
     uz = m.nz / m.rho;
   }
 
+  const auto vf = src.view(P, 0, z, y, x, N);
   if (z == 0 || z == P.nz - 1) {
     // fluid bounce-back of the pre-collision populations (+ moving wall)
     const bool top = z == P.nz - 1;
 #pragma unroll
     for (int d = 0; d < QF; ++d) {
-      T v = ld(f, dir_opp(d) * N + idx);
+      T v = vf(P, dir_opp(d));
       if (top) v = v + P.mw[d];
       pf[d * N + idx] = v;
     }
   } else {
-    trt_field<QF, true, false>(f, pf, N, idx, P.wf, m.rho, ux, uy, uz,
+    trt_field<QF, true, false>(vf, pf, N, idx, P.wf, m.rho, ux, uy, uz,
                                P.f_tscale, P.f_ics2, P.f_op, P.f_om, P,
                                m.fx, m.fy, m.fz, T(0));
   }
 
   T rhs_v = T(0);
   if (P.ek) {
-    trt_field<QS, false, false>(h, ph, N, idx, P.ws, m.c, ux + P.K * m.Ex,
-                                uy + P.K * m.Ey, uz + P.K * m.Ez, P.s_tscale,
-                                P.s_ics2, P.h_op, P.h_om, P, T(0), T(0),
-                                T(0), T(0));
+    trt_field<QS, false, false>(src.view(P, 1, z, y, x, N), ph, N, idx, P.ws,
+                                m.c, ux + P.K * m.Ex, uy + P.K * m.Ey,
+                                uz + P.K * m.Ez, P.s_tscale, P.s_ics2, P.h_op,
+                                P.h_om, P, T(0), T(0), T(0), T(0));
     if (P.nspec == 2)
-      trt_field<QS, false, false>(hn, phn, N, idx, P.ws, m.cn,
-                                  ux + P.Kn * m.Ex, uy + P.Kn * m.Ey,
-                                  uz + P.Kn * m.Ez, P.s_tscale, P.s_ics2,
-                                  P.hn_op, P.hn_om, P, T(0), T(0), T(0), T(0));
+      trt_field<QS, false, false>(src.view(P, 2, z, y, x, N), phn, N, idx,
+                                  P.ws, m.cn, ux + P.Kn * m.Ex,
+                                  uy + P.Kn * m.Ey, uz + P.Kn * m.Ez,
+                                  P.s_tscale, P.s_ics2, P.hn_op, P.hn_om, P,
+                                  T(0), T(0), T(0), T(0));
     rhs_v = -(P.rhs_scale * (m.c - m.cn));
   }
   if (P.thermal) {
+    const auto vg = src.view(P, 3, z, y, x, N);
     if (P.joule_on) {
       const T S = (P.joule * (m.c + m.cn))
                   * (m.Ex * m.Ex + m.Ey * m.Ey + m.Ez * m.Ez);
-      trt_field<QS, false, true>(g, pg, N, idx, P.ws, m.tm, ux, uy, uz,
+      trt_field<QS, false, true>(vg, pg, N, idx, P.ws, m.tm, ux, uy, uz,
                                  P.s_tscale, P.s_ics2, P.g_op, P.g_om, P,
                                  T(0), T(0), T(0), S);
     } else {
-      trt_field<QS, false, false>(g, pg, N, idx, P.ws, m.tm, ux, uy, uz,
+      trt_field<QS, false, false>(vg, pg, N, idx, P.ws, m.tm, ux, uy, uz,
                                   P.s_tscale, P.s_ics2, P.g_op, P.g_om, P,
                                   T(0), T(0), T(0), T(0));
     }
@@ -452,12 +598,10 @@ __device__ __forceinline__ T collide_node(
 // the plain RHS (the x-Hartley forms take it through hartley_rows_kernel).
 // `phi` carries the halo rows and columns of a shard (null on one device).
 template <typename T, int QF, int QS>
-__global__ void __launch_bounds__(128) collide_kernel(
-    const Params<T> P, const T* __restrict__ f, const T* __restrict__ h,
-    const T* __restrict__ hn, const T* __restrict__ g,
-    const T* __restrict__ phi_, const PhiHalo<T> halo, T* __restrict__ pf,
-    T* __restrict__ ph, T* __restrict__ phn, T* __restrict__ pg,
-    T* __restrict__ rhs) {
+__global__ void __launch_bounds__(kThreads) collide_kernel(
+    const Params<T> P, const StateSrc<T> pops, const T* __restrict__ phi_,
+    const PhiHalo<T> halo, T* __restrict__ pf, T* __restrict__ ph,
+    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs) {
   const int64_t plane = (int64_t)P.ny * P.nx;
   const int64_t N = plane * P.nz;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -466,7 +610,7 @@ __global__ void __launch_bounds__(128) collide_kernel(
   const int y = (int)((idx / P.nx) % P.ny);
   const int z = (int)(idx / plane);
   const PhiSrc<T> phi(phi_, halo, P.ny, P.nx);
-  const T r = collide_node<T, QF, QS>(P, f, h, hn, g, phi, pf, ph, phn, pg,
+  const T r = collide_node<T, QF, QS>(P, pops, pops, phi, pf, ph, phn, pg,
                                       z, y, x, N, idx);
   if (P.ek && z >= 1 && z <= P.nz - 2) rhs[idx - plane] = r;
 }
@@ -749,7 +893,7 @@ __device__ __forceinline__ void stream_scalar(
 
 // One device: one thread per node.
 template <typename T, int QF, int QS>
-__global__ void __launch_bounds__(128) stream_bc_kernel(
+__global__ void __launch_bounds__(kThreads) stream_bc_kernel(
     const Params<T> P, const T* __restrict__ pf, const T* __restrict__ ph,
     const T* __restrict__ phn, const T* __restrict__ pg, T* __restrict__ f1,
     T* __restrict__ h1, T* __restrict__ hn1, T* __restrict__ g1) {
@@ -840,7 +984,7 @@ __device__ __forceinline__ void stream_node_halo(
 // selects, compiled into the one-device kernel, cost that ~8-12 % on the
 // H100 (PERF.md).
 template <typename T, int QF, int QS>
-__global__ void __launch_bounds__(128) stream_bc_halo_kernel(
+__global__ void __launch_bounds__(kThreads) stream_bc_halo_kernel(
     const Params<T> P, const T* __restrict__ pf, const T* __restrict__ ph,
     const T* __restrict__ phn, const T* __restrict__ pg,
     const PostRows<T> rows, T* __restrict__ f1, T* __restrict__ h1,
@@ -864,7 +1008,53 @@ __global__ void __launch_bounds__(128) stream_bc_halo_kernel(
                                       idx);
 }
 
-constexpr int kThreads = 128;
+// Copy the Q values a Staged view reads into its slots (cp.async).
+template <int Q, typename T>
+__device__ __forceinline__ void stage(const Staged<T>& v) {
+#pragma unroll
+  for (int d = 0; d < Q; ++d)
+    cp_async<(int)sizeof(T)>(v.s + d * kThreads, v.at.p + v.at.src(d), true);
+}
+
+// One pass of the one-device time loop: the stream of step k-1 and the
+// collide of step k at each node.  `post`: step k-1's post-collision set;
+// phi: phi_k; out: step k's post-collision set and the plain RHS of step
+// k's pre-collision ion moments.  Each thread first copies the values it
+// pulls into its shared-memory slots (StagedSrc: cp.async, one element
+// each, since a pull is misaligned by ex), so all of them are in flight at
+// once without holding a register, and both reads of the collide (the
+// moments, then the TRT) come from shared memory.  The z=0 thread pulls
+// plane 1 for its wall velocity straight from device memory (PullSrc).
+// `post` and the outputs must not alias.
+template <typename T, int QF, int QS>
+__global__ void __launch_bounds__(kThreads) fused_pass_kernel(
+    const Params<T> P, const PullSrc<T> post, const T* __restrict__ phi_,
+    T* __restrict__ pf, T* __restrict__ ph, T* __restrict__ phn,
+    T* __restrict__ pg, T* __restrict__ rhs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const int64_t N = plane * P.nz;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= N) return;
+  const int x = (int)(idx % P.nx);
+  const int y = (int)((idx / P.nx) % P.ny);
+  const int z = (int)(idx / plane);
+  const StagedSrc<T, QF, QS> src{
+      post, reinterpret_cast<T*>(smem_raw) + threadIdx.x};
+  stage<QF>(src.view(P, 0, z, y, x, N));
+  if (P.ek) {
+    stage<QS>(src.view(P, 1, z, y, x, N));
+    if (P.nspec == 2) stage<QS>(src.view(P, 2, z, y, x, N));
+  }
+  if (P.thermal) stage<QS>(src.view(P, 3, z, y, x, N));
+  cp_async_commit();
+  cp_async_wait<0>();  // the thread reads only its own slots
+  const PhiSrc<T> phi(phi_, PhiHalo<T>{nullptr, nullptr, nullptr, nullptr},
+                      P.ny, P.nx);
+  const T r = collide_node<T, QF, QS>(P, src, post, phi, pf, ph, phn, pg, z,
+                                      y, x, N, idx);
+  if (P.ek && z >= 1 && z <= P.nz - 2) rhs[idx - plane] = r;
+}
 
 inline unsigned blocks_for(const HostInts& I) {
   const int64_t n = (int64_t)I.nx * I.ny * I.nz;
@@ -895,10 +1085,33 @@ int launch_collide(const HostInts& I, const HostConsts& C, const void* f,
                    const void* h, const void* hn, const void* g,
                    const void* const* phi, void* pf, void* ph, void* phn,
                    void* pg, void* rhs, cudaStream_t s) {
+  const StateSrc<T> pops{{(const T*)f, (const T*)h, (const T*)hn,
+                          (const T*)g}};
   collide_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
-      make_params<T>(I, C), (const T*)f, (const T*)h, (const T*)hn,
-      (const T*)g, (const T*)phi[0], make_halo<T>(phi), (T*)pf, (T*)ph,
-      (T*)phn, (T*)pg, (T*)rhs);
+      make_params<T>(I, C), pops, (const T*)phi[0], make_halo<T>(phi),
+      (T*)pf, (T*)ph, (T*)phn, (T*)pg, (T*)rhs);
+  return (int)cudaGetLastError();
+}
+
+// One fused pass: post {f, h, hn, g} of step k-1 (null where inactive),
+// phi_k; out: step k's post-collision set and plain RHS.  Dynamic shared
+// memory: one slot per active population and thread.
+template <typename T, int QF, int QS>
+int launch_fused_pass(const HostInts& I, const HostConsts& C,
+                      const void* const* post, const void* phi, void* pf,
+                      void* ph, void* phn, void* pg, void* rhs,
+                      cudaStream_t s) {
+  const PullSrc<T> src{{(const T*)post[0], (const T*)post[1],
+                        (const T*)post[2], (const T*)post[3]}};
+  const int slots = QF + (I.ek ? I.nspec * QS : 0) + (I.thermal ? QS : 0);
+  const size_t smem = (size_t)slots * kThreads * sizeof(T);
+  auto kern = fused_pass_kernel<T, QF, QS>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<blocks_for(I), kThreads, smem, s>>>(
+      make_params<T>(I, C), src, (const T*)phi, (T*)pf, (T*)ph, (T*)phn,
+      (T*)pg, (T*)rhs);
   return (int)cudaGetLastError();
 }
 
@@ -959,6 +1172,19 @@ int collide_any(const HostInts& I, const HostConsts& C, const void* f,
   if (I.qf == QF_ && I.qs == QS_)                                          \
     return launch_collide<T, QF_, QS_>(I, C, f, h, hn, g, phi, pf, ph, phn, \
                                        pg, rhs, s);
+  EKPNP_LATTICE_PAIRS(EKPNP_CASE)
+#undef EKPNP_CASE
+  return -1;
+}
+
+template <typename T>
+int fused_pass_any(const HostInts& I, const HostConsts& C,
+                   const void* const* post, const void* phi, void* pf,
+                   void* ph, void* phn, void* pg, void* rhs, cudaStream_t s) {
+#define EKPNP_CASE(QF_, QS_)                                               \
+  if (I.qf == QF_ && I.qs == QS_)                                          \
+    return launch_fused_pass<T, QF_, QS_>(I, C, post, phi, pf, ph, phn,    \
+                                          pg, rhs, s);
   EKPNP_LATTICE_PAIRS(EKPNP_CASE)
 #undef EKPNP_CASE
   return -1;
@@ -1031,6 +1257,19 @@ int ekpnp_stream_bc(int is_f64, const int* ints, const double* consts,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_f64 != kIsF64) return -3;
   return stream_bc_any<Real>(I, C, post, f1, h1, hn1, g1, s);
+}
+
+// post: {f, h, hn, g} of step k-1 (post-collision), null where inactive;
+// phi: phi_k (real); pf..pg, rhs: step k's post-collision set and plain
+// RHS.
+int ekpnp_fused_pass(int is_f64, const int* ints, const double* consts,
+                     const void* const* post, const void* phi, void* pf,
+                     void* ph, void* phn, void* pg, void* rhs, void* stream) {
+  const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
+  const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (is_f64 != kIsF64) return -3;
+  return fused_pass_any<Real>(I, C, post, phi, pf, ph, phn, pg, rhs, s);
 }
 
 }  // extern "C"

@@ -10,28 +10,33 @@ one shard of a mesh (`halo`: y-slab; `shard_x`: pencil), where the
 neighbours' edge data come in as halo tensors (`PhiHalo` for the collide,
 post-collision `rows` for the stream; parallel/halo.py exchanges them).
 
-Design (csrc/fused_step.cu): two launches per step, x fastest.  The
-collide launch (`collide_kernel`, one thread per node) writes the
-post-collision populations into a scratch set of state size (the fluid's
-reflected pre-collision populations at the plates) and the plain RHS.
-`stream_bc_kernel` pulls from the scratch set and applies the scalar wall
-BCs.  The order is the plain step's exactly (ekpnp_torch/step.py).  The
-x-Hartley forms are composed here from `collide_kernel` and the row product
-`hartley_rows_kernel` (`hartley_rows`: rows @ H, H the (NX, NX) cas matrix,
-register-tiled on the FMA pipes): hartley_x takes the product of the RHS
-rows after the collide; phi_hx first decodes psi_hx into phi (the product
-plus the lifting profile, each row once, a shard's two psi halo rows too).
-The TPU kernel's lane padding, strip sizing, VMEM knobs and its
-EKPNP_HXRHS / EKPNP_PHIHX switches have no counterpart: a CUDA thread
-indexes any NX and NY, and the form is an argument.
+Design (csrc/fused_step.cu), x fastest, one thread per node.  The
+one-device time loop (kernels/step.py `_chunk`) runs a chunk of n steps
+as one `collide` (`collide_kernel`: post-collision populations, the
+fluid's reflected pre-collision populations at the plates, and the plain
+RHS), n - 1 `fused_pass` launches (`fused_pass_kernel`: the previous
+step's post-collision set pulled into each node by the stream's rules,
+then the collide of this step on those values: one pass, 872 B per node
+all-D3Q27 in f32, 392 B with D3Q7 scalars, against the 1736 / 776 B of a
+collide + stream pair) and one `stream_bc` (`stream_bc_kernel`: pull
+stream and scalar wall BCs), each collide or pass followed by the solve.
+A one-step call (`fused_step`) and a shard's step are a collide and a
+stream.  The order of every operation is the plain step's
+(ekpnp_torch/step.py), so the chunk equals its two-launch steps bit for
+bit.  The x-Hartley forms are composed here from the collide (or the
+pass) and the row product `hartley_rows_kernel` (`hartley_rows`: rows @
+H, H the (NX, NX) cas matrix, register-tiled on the FMA pipes):
+hartley_x takes the product of the RHS rows after the launch; phi_hx
+first decodes psi_hx into phi (the product plus the lifting profile, each
+row once, a shard's two psi halo rows too).  The TPU kernel's lane
+padding, strip sizing, VMEM knobs and its EKPNP_HXRHS / EKPNP_PHIHX
+switches have no counterpart: a CUDA thread indexes any NX and NY, and the
+form is an argument.
 
-Bound: device-memory bytes.  Per node and step the pair moves 1736 B with
-every field on D3Q27 in f32 (776 B with D3Q7 scalars): twice the
-population traffic of one fused pass (872 / 392 B).  Fusing the two
-launches is the first item of the perf queue.  The x-Hartley forms add
-2 NX operations per RHS value and per decoded phi value, and send the
-rows they transform through device memory once more (read and written by
-the product).
+Bound: device-memory bytes (above).  The x-Hartley forms add 2 NX
+operations per RHS value and per decoded phi value, and send the rows
+they transform through device memory once more (read and written by the
+product).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` of the
 source in this checkout into `ekpnp_torch/_build/`, one library per
@@ -39,12 +44,13 @@ element type (-DEKPNP_REAL=float / double, two nvcc processes started
 together), keyed by a hash of the source and flags, at first use; loaded
 with ctypes.  A failed build or a launch error raises.
 
-`fused_step` dispatches on the tensors' device, launch by launch: CUDA
+Every wrapper dispatches on the tensors' device, launch by launch: CUDA
 tensors launch the kernels, CPU tensors run each launch's plain version
-(`collide_reference` with the plain RHS, `hartley_rows_reference`,
-`stream_bc_reference`), so the CPU runs the composition the card runs.
-There is no fallback from the card to the plain version.  `launches`
-counts the launches of each kernel form; it is changed nowhere else.
+(`collide_reference` with the plain RHS, `fused_pass_reference`,
+`hartley_rows_reference`, `stream_bc_reference`), so the CPU runs the
+composition the card runs.  There is no fallback from the card to the
+plain version.  `launches` counts the launches of each kernel form; it is
+changed nowhere else.
 """
 from __future__ import annotations
 
@@ -66,20 +72,22 @@ from ..parallel.fft import _hartley_matrix, hartley_x_local
 from ..state import State
 from ..step import PostCollision, collide_and_reflect, stream_and_bcs
 
-# the collide launch of each form (plain RHS, hartley_x, phi_hx), the row
-# product the x-Hartley forms add (every launch, any form), and the stream
-# launch, on one device; then the collide launch of the same forms on a
-# y-slab shard (.halo), the plain-RHS collide on a pencil shard
-# (.shard_x), and the shards' stream launch (.halo: stream_bc_halo_kernel;
-# on a pencil the wrap-column repair of parallel/halo.py follows)
+# the collide launch of each form (plain RHS, hartley_x, phi_hx), the
+# fused pass of each form, the row product the x-Hartley forms add (every
+# launch, any form), and the stream launch, on one device; then the
+# collide launch of the same forms on a y-slab shard (.halo), the
+# plain-RHS collide on a pencil shard (.shard_x), and the shards' stream
+# launch (.halo: stream_bc_halo_kernel; on a pencil the wrap-column repair
+# of parallel/halo.py follows)
 KERNELS = ("collide_kernel", "collide_kernel.hartley_x",
-           "collide_kernel.phi_hx", "hartley_rows_kernel", "stream_bc_kernel",
+           "collide_kernel.phi_hx", "fused_pass_kernel",
+           "fused_pass_kernel.hartley_x", "fused_pass_kernel.phi_hx",
+           "hartley_rows_kernel", "stream_bc_kernel",
            "collide_kernel.halo", "collide_kernel.hartley_x.halo",
            "collide_kernel.phi_hx.halo", "collide_kernel.shard_x",
            "stream_bc_kernel.halo")
-_COLLIDE_FORMS = {(False, False): "collide_kernel",
-                  (True, False): "collide_kernel.hartley_x",
-                  (True, True): "collide_kernel.phi_hx"}
+_FORMS = {(False, False): "", (True, False): ".hartley_x",
+          (True, True): ".phi_hx"}
 # launches of each kernel form on the card, counted where it is launched
 launches = {name: 0 for name in KERNELS}
 
@@ -119,7 +127,7 @@ def reset_launches() -> None:
 def collide_form(hartley_x: bool, phi_hx: bool,
                  phi_halo: Optional[PhiHalo] = None) -> str:
     """The launch-count name of a collide call."""
-    name = _COLLIDE_FORMS[(hartley_x, phi_hx)]
+    name = "collide_kernel" + _FORMS[(hartley_x, phi_hx)]
     if phi_halo is None:
         return name
     return name + (".shard_x" if phi_halo.xlo is not None else ".halo")
@@ -226,6 +234,9 @@ def _load():
         lib.ekpnp_hartley_rows.restype = ci
         lib.ekpnp_stream_bc.argtypes = [ci, vp, vp] + [vp] * 5 + [vp]
         lib.ekpnp_stream_bc.restype = ci
+        # is_f64, ints, consts, post (array), phi, out x 4, rhs, stream
+        lib.ekpnp_fused_pass.argtypes = [ci, vp, vp, vp, vp] + [vp] * 6
+        lib.ekpnp_fused_pass.restype = ci
         n_i, n_c = ctypes.c_int(), ctypes.c_int()
         lib.ekpnp_abi(ctypes.byref(n_i), ctypes.byref(n_c))
         if (n_i.value, n_c.value) != want:
@@ -410,6 +421,17 @@ def fused_step_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None,
     return (*stream_bc_reference(cfg, pf, ph, phn, pg), rhs)
 
 
+def fused_pass_reference(cfg: Config, pf, ph=None, phn=None, pg=None,
+                         phi=None, *, hartley_x: Optional[bool] = None,
+                         phi_hx: bool = False):
+    """Plain version of the fused pass: `stream_bc_reference` of one step's
+    post-collision set, then `collide_reference` of the next step (with
+    phi, or psi_hx for phi_hx): (post_f, post_h, post_hn, post_g, rhs)."""
+    f, h, hn, g = stream_bc_reference(cfg, pf, ph, phn, pg)
+    return collide_reference(cfg, f, h, hn, g, phi, hartley_x=hartley_x,
+                             phi_hx=phi_hx)
+
+
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
@@ -515,6 +537,15 @@ def _empty_like_fields(cfg, like):
         torch.empty((shapes[n],) + cfg.grid.shape, dtype=like.dtype,
                     device=like.device) if n in shapes else None
         for n in ("f", "h", "hn", "g"))
+
+
+def _check_apart(outs, ins):
+    """No output tensor shares storage with an input: a pull reads its
+    neighbours' values while other threads write theirs."""
+    base = lambda t: t.untyped_storage().data_ptr()
+    taken = {base(t) for t in ins if t is not None}
+    if any(t is not None and base(t) in taken for t in outs):
+        raise ValueError("fused_pass: an output aliases an input")
 
 
 def _launch(fn, name, *args):
@@ -665,19 +696,62 @@ def stream_bc(cfg: Config, pf, ph=None, phn=None, pg=None, out=None,
     return out
 
 
-def fused_step(cfg: Config, f, h=None, hn=None, g=None, phi=None,
-               out=None, post=None, *, hartley_x: Optional[bool] = None,
+def _fused_pass_plain_rhs(cfg: Config, name: str, pf, ph, phn, pg, phi,
+                          out):
+    """The fused pass with the plain RHS (fused_pass_kernel, counted as
+    `name`), or its plain version for CPU tensors."""
+    if pf.device.type == "cpu":
+        return fused_pass_reference(cfg, pf, ph, phn, pg, phi,
+                                    hartley_x=False)
+    lib, ints, consts, is_f64, stream = _prep(
+        cfg, dict(f=pf, h=ph, hn=phn, g=pg, phi=phi), pf)
+    out = out if out is not None else _empty_like_fields(cfg, pf)
+    _check_apart(out, (pf, ph, phn, pg))
+    rhs = (torch.empty((cfg.grid.nz - 2,) + cfg.grid.shape[1:],
+                       dtype=pf.dtype, device=pf.device)
+           if cfg.physics.enable_ek else None)
+    with torch.cuda.device(pf.device):
+        _launch(lib.ekpnp_fused_pass, name, is_f64, ints.ctypes.data,
+                consts.ctypes.data, _ptrs(pf, ph, phn, pg),
+                _ptr(phi), *map(_ptr, out), _ptr(rhs), stream)
+    return (*out, rhs)
+
+
+def fused_pass(cfg: Config, pf, ph=None, phn=None, pg=None, phi=None,
+               out=None, *, hartley_x: Optional[bool] = None,
                phi_hx: bool = False):
+    """One pass of the one-device time loop: the stream of step k-1 and the
+    collide of step k.  (pf, ph, phn, pg): step k-1's post-collision set;
+    phi: phi_k (psi_hx for phi_hx).  Returns step k's post-collision set
+    and RHS (post_f, post_h, post_hn, post_g, rhs), the RHS from step k's
+    pre-collision ion moments: what `stream_bc` then `collide` return, bit
+    for bit.  The forms compose as `collide`'s do: phi_hx decodes psi by
+    `hartley_rows` first, the x-Hartley forms take the RHS product after
+    the pass.  CUDA tensors launch fused_pass_kernel (counted under the
+    form's name), CPU tensors run `fused_pass_reference`.  `out` may hold
+    a preallocated population set that does not alias the inputs."""
+    hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
+    _check(cfg, dict(f=pf, h=ph, hn=phn, g=pg, phi=phi), pf.device, pf.dtype)
+    name = "fused_pass_kernel" + _FORMS[(hartley_x, phi_hx)]
+    if phi_hx:
+        phi = hartley_rows(phi, lift=cfg)
+    *pops, rhs = _fused_pass_plain_rhs(cfg, name, pf, ph, phn, pg, phi, out)
+    if hartley_x:
+        rhs = hartley_rows(rhs)
+    return (*pops, rhs)
+
+
+def fused_step(cfg: Config, f, h=None, hn=None, g=None, phi=None, *,
+               hartley_x: Optional[bool] = None, phi_hx: bool = False):
     """One fused step: (f, h, hn, g, phi) -> (f1, h1, hn1, g1, rhs), rhs the
     interior Poisson RHS planes z = 1..NZ-2 (None without EK): the same
     contract as the TPU kernel's `apply`.  `hartley_x` / `phi_hx` choose
     the collide form (`resolve_hartley_x`; the caller passes the resolved
     flag on to the solve as `rhs_hx`).
 
-    CUDA tensors run the two kernels on the current stream; CPU tensors run
-    the plain versions.  `post` (scratch) and `out` (f1, h1, hn1, g1) may be
-    preallocated population sets that do not alias the inputs."""
-    pf, ph, phn, pg, rhs = collide(cfg, f, h, hn, g, phi, post=post,
+    CUDA tensors run the collide and the stream on the current stream; CPU
+    tensors run the plain versions."""
+    pf, ph, phn, pg, rhs = collide(cfg, f, h, hn, g, phi,
                                    hartley_x=hartley_x, phi_hx=phi_hx)
-    f1, h1, hn1, g1 = stream_bc(cfg, pf, ph, phn, pg, out=out)
+    f1, h1, hn1, g1 = stream_bc(cfg, pf, ph, phn, pg)
     return f1, h1, hn1, g1, rhs

@@ -1,15 +1,17 @@
 """Timestep built on the fused step kernels (port of ekpnp/pallas/step.py,
 single device).
 
-Each step runs the fused step (kernels/fused_step.py: CUDA kernels on the
-card, their plain version on the CPU) and then the spectral solve of the
-emitted RHS for the next phi.  Wherever EK is on and fft_method != "fft",
-the fused step emits the RHS already transformed along x (hartley_x) and
-the solve skips its forward x stage (`rhs_hx`).  `multi_step` goes one step
-further wherever `phi_hx_capable` holds: the chunk carries phi as psi_hx,
-encoded once and decoded once, the fused step decodes phi itself (phi_hx)
-and the solve runs no x stage at all.  State goes in and out with real phi
-either way.
+A step is the fused step (kernels/fused_step.py: CUDA kernels on the card,
+their plain version on the CPU) and then the spectral solve of the emitted
+RHS for the next phi.  Wherever EK is on and fft_method != "fft", the RHS
+comes already transformed along x (hartley_x) and the solve skips its
+forward x stage (`rhs_hx`).  `multi_step` goes one step further wherever
+`phi_hx_capable` holds: the chunk carries phi as psi_hx, encoded once and
+decoded once, the kernels decode phi themselves (phi_hx) and the solve runs
+no x stage at all.  A chunk of n steps is cut at the stream rather than
+after it (`_chunk`): one collide, n - 1 fused passes (the stream of one
+step and the collide of the next), one stream.  State goes in and out with
+real phi either way.
 """
 from __future__ import annotations
 
@@ -17,17 +19,17 @@ from ..config import Config
 from ..ops.poisson import (phi_from_psi_hx, poisson_phi_from_rhs,
                            poisson_psi_hx_from_rhs, psi_hx_from_phi)
 from ..state import State
-from .fused_step import _CBC, _empty_like_fields, fused_step, resolve_hartley_x
+from .fused_step import (_CBC, _empty_like_fields, collide, fused_pass,
+                         fused_step, resolve_hartley_x, stream_bc)
 
 
-def step_fused(cfg: Config, state: State, out=None, post=None):
+def step_fused(cfg: Config, state: State):
     """One step.  Returns (state', rhs) with rhs the interior Poisson RHS
     planes (z = 1..NZ-2) from this step's pre-collision ion moments, in
     x-Hartley space where the kernel took the hartley_x form."""
     hx = resolve_hartley_x(cfg)
     f1, h1, hn1, g1, rhs = fused_step(cfg, state.f, state.h, state.hn,
-                                      state.g, state.phi, out=out, post=post,
-                                      hartley_x=hx)
+                                      state.g, state.phi, hartley_x=hx)
     phi = state.phi
     if cfg.physics.enable_ek:
         phi = poisson_phi_from_rhs(cfg, rhs, rhs_hx=hx)
@@ -35,13 +37,12 @@ def step_fused(cfg: Config, state: State, out=None, post=None):
     return State(f=f1, h=h1, hn=hn1, g=g1, phi=phi, t=t), rhs
 
 
-def step_fused_hx(cfg: Config, state: State, out=None, post=None) -> State:
+def step_fused_hx(cfg: Config, state: State) -> State:
     """One step in x-Hartley phi encoding: state.phi holds psi_hx
     (phi = H_x(psi) + lifting), the fused step decodes it (phi_hx) and emits
     the RHS x-transformed, and the solve returns the next psi_hx."""
     f1, h1, hn1, g1, rhs = fused_step(cfg, state.f, state.h, state.hn,
-                                      state.g, state.phi, out=out, post=post,
-                                      phi_hx=True)
+                                      state.g, state.phi, phi_hx=True)
     psi = poisson_psi_hx_from_rhs(cfg, rhs)
     t = state.t + cfg.physics.dt(cfg.grid.dx)
     return State(f=f1, h=h1, hn=hn1, g=g1, phi=psi, t=t)
@@ -57,29 +58,48 @@ def phi_hx_capable(cfg: Config) -> bool:
             and cfg.run.fft_method != "fft")
 
 
-def _chunk(cfg: Config, state: State, n: int, one_step) -> State:
-    """n steps of `one_step(cfg, state, out, post) -> state` with two
-    population sets and one scratch set, ping-ponged."""
-    post = _empty_like_fields(cfg, state.f)
-    spare = _empty_like_fields(cfg, state.f)
-    for _ in range(n):
-        prev = (state.f, state.h, state.hn, state.g)
-        state = one_step(cfg, state, out=spare, post=post)
-        spare = prev
-    return state
+def _chunk(cfg: Config, state: State, n: int, phi_hx: bool = False) -> State:
+    """n steps cut at the stream: one collide of the route's form on the
+    input state, then n - 1 times the solve and a fused pass (the stream of
+    step k - 1 and the collide of step k, `fused_pass`), the last solve and
+    one stream.  A pass emits step k's RHS from the pre-collision moments
+    it streams in and collides with the phi the solve just made, so every
+    node runs the operations of n `step_fused` steps in their order, and
+    the chunk equals them bit for bit.  Two population sets ping-pong: the
+    donated input state's and one more.  phi_hx: state.phi holds psi_hx
+    (`step_fused_hx`'s route); else real phi (`step_fused`'s)."""
+    if n <= 0:
+        return state
+    hx = resolve_hartley_x(cfg, None, phi_hx)
+    form = dict(hartley_x=hx, phi_hx=phi_hx)
+    ek = cfg.physics.enable_ek
+    dt = cfg.physics.dt(cfg.grid.dx)
+    spare = (state.f, state.h, state.hn, state.g)
+    *post, rhs = collide(cfg, *spare, state.phi,
+                         post=_empty_like_fields(cfg, state.f), **form)
+    phi, t = state.phi, state.t
+    for k in range(n):
+        if ek:
+            phi = (poisson_psi_hx_from_rhs(cfg, rhs) if phi_hx else
+                   poisson_phi_from_rhs(cfg, rhs, rhs_hx=hx))
+        t = t + dt
+        if k < n - 1:
+            *nxt, rhs = fused_pass(cfg, *post, phi, out=spare, **form)
+            spare, post = tuple(post), nxt
+    f1, h1, hn1, g1 = stream_bc(cfg, *post, out=spare)
+    return State(f=f1, h=h1, hn=hn1, g=g1, phi=phi, t=t)
 
 
 def multi_step_rhs(cfg: Config, state: State, n: int) -> State:
-    """n steps of `step_fused` (real phi between steps)."""
-    return _chunk(cfg, state, n,
-                  lambda c, s, out, post: step_fused(c, s, out, post)[0])
+    """n steps of `step_fused`'s route (real phi between steps)."""
+    return _chunk(cfg, state, n)
 
 
 def multi_step_hx(cfg: Config, state: State, n: int) -> State:
-    """n steps carrying phi as psi_hx: one encode, n `step_fused_hx` steps,
-    one decode."""
+    """n steps of `step_fused_hx`'s route, carrying phi as psi_hx: one
+    encode, the chunk, one decode."""
     state = state._replace(phi=psi_hx_from_phi(cfg, state.phi))
-    state = _chunk(cfg, state, n, step_fused_hx)
+    state = _chunk(cfg, state, n, phi_hx=True)
     return state._replace(phi=phi_from_psi_hx(cfg, state.phi))
 
 
@@ -88,7 +108,7 @@ def multi_step(cfg: Config, state: State, n: int) -> State:
     wherever `phi_hx_capable` holds, else `multi_step_rhs`.
 
     The input state's population tensors are DONATED: they serve as one of
-    the two buffers and hold an intermediate step afterwards (as the JAX
+    the two buffers and hold an intermediate pass afterwards (as the JAX
     package's multi_step donates its state).  Use only the returned state."""
     if n <= 0:
         return state

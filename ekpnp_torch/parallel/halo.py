@@ -160,7 +160,7 @@ def step_halo(cfg: Config, mesh: Mesh, state: State, phi_hx: bool = False,
     exchange, then the distributed solve.  phi_hx: state.phi holds psi_hx
     (slab meshes; the halo rows travel as psi and the collide decodes them).
     out / post: per shard, preallocated population sets for the streamed
-    state and the post-collision scratch (kernels.step._chunk)."""
+    state and the post-collision scratch (make_halo_multi_step)."""
     p = cfg.physics
     cfg_l = local_cfg(cfg, mesh)
     ek = p.enable_ek
