@@ -64,11 +64,34 @@ one card (a mesh may hold a device more than once):
      solve times, launch counts, peak memory;
   6b. the CLI with `--mesh slab --mesh-devices 4`, 10 steps, then `merge`:
      rc 0, a merged data.dat, finite series;
+then the production run loop, through the entry points a user calls:
+  a. the 1000-step reference experiment through the CLI, f64, perturbed
+     first step, --checkpoint-full: the JAX package's pinned series tail
+     (tests/test_production_run.py) at rtol 1e-8, 3 zones, six artifacts;
+  b. the full-size CLI run: `run ek-pnp-thermal --steps 300 --set
+     pb_omega=0.02 nsave=150 print_current=50` in its own process, one
+     dump on the writer thread inside the loop, 3 zones of 256x256x257,
+     after the same run with nsave=300 (no dump in the loop): rc 0,
+     finite series, the route's launches, each MLUPS beside phase 5's loop
+     MLUPS (the output is deleted once read);
+  c. resume at reference size (fft route, whose chunks equal their steps
+     bit for bit): f32 and f64 run(6) against run(3) + --checkpoint-full +
+     --resume + run(3), exactly; a slab-4 state_end.ckpt resumed on
+     pencil 2x2 against run(6) at rtol 1e-10 (f64); a --profile trace;
+  d. `python -m ekpnp_torch bench` with its defaults and one line each of
+     --mode poisson, pbinit and fluid: one JSON line each at 256^3, the
+     headline within 10 % of phase 5's D3Q7 MLUPS and its all-D3Q27
+     companion within 10 % of phase 5's all-D3Q27 MLUPS;
+  e. step_diff on the card (f64, 8x4x9, 3 steps): the forward pass
+     launches the kernels, the gradient equals the CPU's plain gradient at
+     rtol 1e-10;
   7. one JSON line describing each CUDA kernel form;
   8. the final line {"ok": true, "device": {...}}.
 Launch counts are zeroed before each main-path run and read after it: a
 sharded run must show steps x shards launches of its route's forms (a
-collide and a stream per step and shard) and none of any other.  Details
+collide and a stream per step and shard) and none of any other; the CLI
+zeroes them as its clock starts and prints them after it (a, b), the
+benchmark puts those of its timed windows into its line (d).  Details
 go to smoke_out/chip_smoke.json.
 """
 import json
@@ -88,6 +111,14 @@ GOLDEN = {
     "phi_min": -0.0052574,
     "phi_max": -0.0006892896051530279,
     "uz_abs_sum": 0.02935283751694766,
+}
+# tests/test_production_run.py _PINNED_TAIL: step -> (umax_uz, umax_mag,
+# current) of the 1000-step reference experiment (test_torch_run.py keeps
+# the two equal)
+PINNED_TAIL = {
+    900: (5.199975618e-06, 3.227607422e-05, 3.876292858e-18),
+    950: (5.200272947e-06, 3.250047060e-05, 3.876425318e-18),
+    1000: (5.200554956e-06, 3.268748869e-05, 3.876603747e-18),
 }
 TOL = {"float64": 1e-12, "float32": 1e-5}
 CASES = {
@@ -624,7 +655,7 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     final state and held to their plain versions."""
     import torch
 
-    from ekpnp_torch.diagnostics import check_finite
+    from ekpnp_torch.diagnostics import check_finite, series_point
     from ekpnp_torch.kernels import fused_step as fs
     from ekpnp_torch.kernels.step import (multi_step, multi_step_rhs,
                                           phi_hx_capable)
@@ -751,6 +782,8 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
         if k in design_bytes:  # the composed forms' own floor
             bound_design[k] = max(design_bytes[k] / bw * 1e3, to)
     two = {fused_name(k): ms[k] + ms["stream_bc_kernel"] for k, _ in FORMS}
+    # one diagnostics event of the CLI (the plain PyTorch series point)
+    series_ms = _events_ms(lambda: series_point(cfg, state), 3)
     res = dict(label=label, grid=list(cfg.grid.shape), dtype=cfg.run.dtype,
                scalars=cfg.scalar_lat.name, steps=steps, init_s=init_s,
                chunk_vs_two_launch=chunk_d, two_launch_ms=two,
@@ -762,7 +795,8 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
                bound_by={k: v[1] for k, v in bound.items()},
                bound_design_ms=bound_design, rows_decode=decode,
                bytes=bytes_, ops=ops, rel_err=errs, abs_err=abs_errs,
-               peak_gb=peak_gb, peak_init_gb=peak_init_gb, finite=finite)
+               peak_gb=peak_gb, peak_init_gb=peak_init_gb, finite=finite,
+               series_point_ms=series_ms)
     log(f"{label}: {mlups:.1f} MLUPS, {step_ms:.3f} ms/step (phi_hx route), "
         f"{step_ms_off:.3f} ms/step (phi_hx off: hartley_x form), init "
         f"{init_s:.2f} s, peak {peak_gb:.2f} GB in the time loop "
@@ -779,7 +813,8 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     log(f"  {rk} decode (psi, lifted, {decode['rows']} rows): "
         f"{decode['ms']:.3f} ms, torch.matmul {decode['library_ms']:.3f} ms, "
         f"plain {decode['plain_ms']:.3f} ms, rel err {decode['rel_err']:.2e}")
-    log("  solve: " + ", ".join(f"{k} {v:.3f} ms" for k, v in solve_ms.items()))
+    log("  solve: " + ", ".join(f"{k} {v:.3f} ms" for k, v in solve_ms.items())
+        + f"; a series event (diagnostics.series_point) {series_ms:.3f} ms")
     return res, state
 
 
@@ -1333,6 +1368,359 @@ def phase_cli():
     return dict(seconds=secs, last_row=last)
 
 
+# ---------------------------------------------------------------------------
+# the production run loop: the CLI, resume, the benchmark entry, step_diff
+# ---------------------------------------------------------------------------
+
+def _cli(argv):
+    """`python -m ekpnp_torch <argv>` in this process, its output captured:
+    (rc, stdout + stderr).  The timed loop's launch counts are zeroed at
+    its start (run.py) and read after it from fused_step.launches."""
+    import contextlib
+    import io
+
+    from ekpnp_torch.run import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def _cli_chunks(nsteps, nsave, ncur, done=1):
+    """The number of chunks of a CLI run's timed loop (run.py's cadence)."""
+    from ekpnp_torch.run import _next_multiple
+
+    n = 0
+    while done < nsteps:
+        done = min(_next_multiple(done, nsave, 0),
+                   _next_multiple(done, ncur, 0), nsteps)
+        n += 1
+    return n
+
+
+def _series_rows(path):
+    import csv
+
+    with open(path) as fh:
+        return {int(r["step"]): r for r in csv.DictReader(fh)}
+
+
+def _check_rows_finite(label, rows):
+    import math
+
+    for step, r in rows.items():
+        if not all(math.isfinite(float(v)) for v in r.values()):
+            raise SystemExit(f"chip_smoke: {label}: non-finite series row "
+                             f"{step}: {r}")
+
+
+def phase_anchor():
+    """(a) The 1000-step reference experiment through the CLI on the card,
+    f64, perturbed first step: the JAX package's pinned series tail at
+    rtol 1e-8, 3 zones, the six artifacts; the timed loop's launches are
+    the phi_hx route's."""
+    from ekpnp_torch.kernels import fused_step as fs
+
+    out = os.path.join("smoke_out", "anchor")
+    t0 = time.perf_counter()
+    rc, text = _cli(["run", "reference", "--steps", "1000", "--precision",
+                     "f64", "--checkpoint-full", "--set",
+                     "perturb_first_step=True", "--outdir", out])
+    secs = time.perf_counter() - t0
+    counts = dict(fs.launches)
+    if rc != 0:
+        raise SystemExit(f"chip_smoke: anchor run rc {rc}:\n{text[-3000:]}")
+    for name in ("data.dat", "umax.dat", "series.csv", "data_end.npz",
+                 "data_end.dat", "state_end.npz"):
+        if not os.path.getsize(os.path.join(out, name)):
+            raise SystemExit(f"chip_smoke: anchor run: empty {name}")
+    with open(os.path.join(out, "data.dat")) as fh:
+        zones = sum(1 for line in fh if line.startswith("ZONE"))
+    if zones != 3:
+        raise SystemExit(f"chip_smoke: anchor run: {zones} zones, want 3")
+    rows = _series_rows(os.path.join(out, "series.csv"))
+    devs = {}
+    for step, want in PINNED_TAIL.items():
+        got = [float(rows[step][k]) for k in ("umax_uz", "umax_mag", "current")]
+        devs[step] = max(abs(g / w - 1.0) for g, w in zip(got, want))
+        if devs[step] > 1e-8:
+            raise SystemExit(f"chip_smoke: anchor run: step {step} {got}, "
+                             f"want {want} (rel {devs[step]:.3e})")
+    _want_launches(counts, "anchor run", **_route(
+        "collide_kernel.phi_hx", 999, chunks=_cli_chunks(1000, 500, 50)))
+    mlups = float(text.split("speed:")[1].split("(")[0])
+    log(f"(a) anchor: `run reference --steps 1000 --precision f64 "
+        f"--checkpoint-full --set perturb_first_step=True`: rc 0 in "
+        f"{secs:.1f} s, {zones} zones, steps 900/950/1000 max rel dev "
+        f"{max(devs.values()):.2e} (rtol 1e-8), {mlups} MLUPS")
+    return dict(seconds=secs, rel_dev=devs, launches=counts, mlups=mlups)
+
+
+def _cli_full(nsave):
+    """`run ek-pnp-thermal --steps 300 --set pb_omega=0.02 nsave=<nsave>
+    print_current=50` in its own process (f32, the phi_hx route), read and
+    deleted: rc 0, a zone at 0, every in-loop dump and the end, a finite
+    series, the route's launches in the timed loop."""
+    import shutil
+
+    from ekpnp_torch.kernels.fused_step import KERNELS
+
+    out = os.path.join("smoke_out", "cli_full")
+    free_gb = shutil.disk_usage(".").free / 1e9
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    label = f"full-size CLI run (nsave {nsave})"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ekpnp_torch", "run", "ek-pnp-thermal",
+         "--steps", "300", "--set", "pb_omega=0.02", f"nsave={nsave}",
+         "print_current=50", "--outdir", out],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    try:
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_smoke: {label} rc {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        zones = int(subprocess.run(
+            ["grep", "-c", "^ZONE", os.path.join(out, "data.dat")],
+            capture_output=True, text=True, timeout=300).stdout.strip() or 0)
+        if zones != 2 + len(range(nsave, 300, nsave)):
+            raise SystemExit(f"chip_smoke: {label}: {zones} zones")
+        rows = _series_rows(os.path.join(out, "series.csv"))
+        if sorted(rows) != [50, 100, 150, 200, 250, 300]:
+            raise SystemExit(f"chip_smoke: {label}: rows {sorted(rows)}")
+        _check_rows_finite(label, rows)
+        text = proc.stdout
+        counts = {k: 0 for k in KERNELS}
+        counts.update(json.loads(text.split("kernel launches:")[1]
+                                 .splitlines()[0]))
+        _want_launches(counts, label, **_route(
+            "collide_kernel.phi_hx", 299, chunks=_cli_chunks(300, nsave, 50)))
+        res = dict(
+            seconds=secs, zones=zones, launches=counts, free_gb=free_gb,
+            mlups=float(text.split("speed:")[1].split("(")[0]),
+            runtime_s=float(text.split("clock runtime:")[1].split("(")[0]),
+            writer=text.split("writer thread:")[1].splitlines()[0].strip(),
+            file_gb={n: os.path.getsize(os.path.join(out, n)) / 1e9
+                     for n in ("data.dat", "data_end.dat", "data_end.npz")})
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"  {label}: rc 0 in {secs:.1f} s, {zones} zones, {res['mlups']} "
+        f"MLUPS ({res['runtime_s']} s on the clock); writer thread: "
+        f"{res['writer']}; files GB {res['file_gb']}, disk free before "
+        f"{free_gb:.0f} GB")
+    return res
+
+
+def phase_cli_full(loop_mlups):
+    """(b) The full-size CLI run: `run ek-pnp-thermal --steps 300 --set
+    pb_omega=0.02 nsave=150 print_current=50` (one dump inside the loop on
+    the writer thread, 3 zones of 256x256x257), after the same run with
+    nsave=300 (no dump inside the loop): each MLUPS printed beside phase
+    5's loop MLUPS.  The output (about 10 GB of text a run) is deleted once
+    read."""
+    quiet = _cli_full(300)
+    res = _cli_full(150)
+    log(f"(b) full-size CLI `run ek-pnp-thermal --steps 300 --set "
+        f"pb_omega=0.02 nsave=150 print_current=50`: {res['mlups']} MLUPS "
+        f"with one dump in the loop, {quiet['mlups']} with none (nsave=300), "
+        f"against the loop's {loop_mlups:.1f} MLUPS (phase 5, no series "
+        f"events)")
+    res.update(loop_mlups=loop_mlups, no_dump=quiet)
+    return res
+
+
+def _full_npz(path):
+    import numpy as np
+
+    with np.load(path) as d:
+        return {k: d[k] for k in d.files}
+
+
+def phase_resume():
+    """(c) Resume on the card, reference size, fft_method "fft" (chunks
+    equal their steps bit for bit): f32 and f64, run(6) against run(3) +
+    --checkpoint-full + --resume state_end.npz + run(3), exactly; f64, a
+    slab-4 state_end.ckpt resumed on pencil 2x2 against run(6) at rtol
+    1e-10 (the distributed solve's roundoff), the slab run with a
+    sharded dump inside its loop."""
+    import numpy as np
+
+    import ekpnp_torch
+    from ekpnp_torch.io import checkpoint as ckpt
+
+    root = os.path.join("smoke_out", "resume")
+
+    def run(tag, prec, steps, *extra, nsave=3, ncur=3):
+        out = os.path.join(root, tag)
+        rc, text = _cli(["run", "reference", "--steps", str(steps),
+                         "--precision", prec, "--outdir", out, "--set",
+                         "fft_method=fft", f"nsave={nsave}",
+                         f"print_current={ncur}", "--checkpoint-full",
+                         *extra])
+        if rc != 0:
+            raise SystemExit(f"chip_smoke: resume {tag}: rc {rc}:\n"
+                             f"{text[-3000:]}")
+        return out
+
+    t0 = time.perf_counter()
+    res = {}
+    prof = os.path.join(root, "profile")
+    for prec in ("f32", "f64"):
+        six = run(f"{prec}_six", prec, 6,
+                  *(["--profile", prof] if prec == "f64" else []))
+        three = run(f"{prec}_three", prec, 3)
+        back = run(f"{prec}_resumed", prec, 3, "--resume",
+                   os.path.join(three, "state_end.npz"))
+        a = _full_npz(os.path.join(six, "state_end.npz"))
+        b = _full_npz(os.path.join(back, "state_end.npz"))
+        d = max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+                for k in a if k not in ("grid", "lattice_q"))
+        if sorted(a) != sorted(b) or d != 0:
+            raise SystemExit(f"chip_smoke: resume {prec}: resumed run differs "
+                             f"from the uninterrupted one by {d!r}")
+        res[prec] = d
+    # a dump at step 2 and a series event every step: the writer thread
+    # copies a sharded snapshot from the card
+    slab = run("f64_three_slab4", "f64", 3, "--mesh", "slab",
+               "--mesh-devices", "4", nsave=2, ncur=1)
+    if not os.path.exists(os.path.join(slab, "fields_000002.shards",
+                                       "shard_0.npz")):
+        raise SystemExit("chip_smoke: the slab-4 run wrote no dump at step 2")
+    pencil = run("f64_resumed_pencil2x2", "f64", 3, "--mesh", "pencil",
+                 "--mesh-devices", "4", "--resume",
+                 os.path.join(slab, "state_end.ckpt"))
+    cfg = ekpnp_torch.preset("reference", dtype="float64")
+    got = ckpt.load_sharded(os.path.join(pencil, "state_end.ckpt"), cfg,
+                            device="cpu")
+    want = _full_npz(os.path.join(root, "f64_six", "state_end.npz"))
+    rel = 0.0
+    for k, key in (("f", "f_pop"), ("h", "h_pop"), ("hn", "hn_pop"),
+                   ("g", "g_pop"), ("phi", "phi"), ("t", "t")):
+        w = want[key]
+        e = float(np.abs(getattr(got, k).numpy() - w).max()
+                  / max(float(np.abs(w).max()), 1e-300))
+        rel = max(rel, e)
+    if rel > 1e-10:
+        raise SystemExit(f"chip_smoke: sharded resume slab 4 -> pencil 2x2: "
+                         f"rel {rel:.3e} against the one-device run")
+    res["slab4_to_pencil2x2_rel"] = rel
+    with open(os.path.join(prof, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    res["profile_kernel_events"] = sum(1 for e in events
+                                       if e.get("cat") == "kernel")
+    secs = time.perf_counter() - t0
+    log(f"(c) resume (reference, fft route, --checkpoint-full + --resume): "
+        f"f32 and f64 max |d| {res['f32']!r} / {res['f64']!r} against the "
+        f"uninterrupted run; slab 4 -> pencil 2x2 f64 rel {rel:.2e}; "
+        f"--profile trace: {res['profile_kernel_events']} device kernel "
+        f"events; {secs:.1f} s")
+    res["seconds"] = secs
+    return res
+
+
+def phase_bench(head, full):
+    """(d) `python -m ekpnp_torch bench` with its defaults, then one line
+    each of --mode poisson, pbinit and fluid: one JSON line each at 256^3;
+    the headline within 10 % of phase 5's D3Q7 default-route MLUPS, its
+    all-D3Q27 companion within 10 % of phase 5's all-D3Q27 route."""
+    from ekpnp_torch.kernels.fused_step import KERNELS
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    lines, secs = {}, {}
+    for mode in ("coupled", "poisson", "pbinit", "fluid"):
+        args = [] if mode == "coupled" else ["--mode", mode]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ekpnp_torch", "bench", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=900)
+        secs[mode] = time.perf_counter() - t0
+        js = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or len(js) != 1:
+            raise SystemExit(f"chip_smoke: bench {mode}: rc {proc.returncode}, "
+                             f"{len(js)} JSON lines:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+        lines[mode] = json.loads(js[0])
+        if "at 256^3" not in lines[mode]["metric"]:
+            raise SystemExit(f"chip_smoke: bench {mode}: not at 256^3: "
+                             f"{lines[mode]['metric']}")
+        log(f"(d) bench {mode} ({secs[mode]:.1f} s): {js[0]}")
+    c = lines["coupled"]
+    for key, got, want in (("value", c["value"], head["mlups"]),
+                           ("ref_parity_all_d3q27_mlups",
+                            c["ref_parity_all_d3q27_mlups"], full["mlups"])):
+        if abs(got / want - 1.0) > 0.10:
+            raise SystemExit(f"chip_smoke: bench {key} {got} MLUPS is not "
+                             f"within 10 % of phase 5's {want:.1f}")
+    launches = {}
+    for mode in ("coupled", "fluid"):
+        launches[mode] = {k: 0 for k in KERNELS}
+        launches[mode].update(lines[mode]["launches"])
+    if not launches["coupled"]["fused_pass_kernel.phi_hx"]:
+        raise SystemExit(f"chip_smoke: bench: the timed windows launched no "
+                         f"fused pass: {launches['coupled']}")
+    log(f"(d) bench headline {c['value']} MLUPS vs phase 5 D3Q7 "
+        f"{head['mlups']:.1f}; parity {c['ref_parity_all_d3q27_mlups']} vs "
+        f"phase 5 all-D3Q27 {full['mlups']:.1f}")
+    return dict(lines=lines, seconds=secs, launches=launches)
+
+
+def phase_step_diff():
+    """(e) step_diff on the card, f64, 8x4x9, 3 steps: the forward pass
+    launches the kernels, and the gradient of kinetic energy + charge
+    second moment wrt the start charge equals the CPU's plain gradient
+    (autograd through ekpnp_torch.step.step) at rtol 1e-10."""
+    import numpy as np
+    import torch
+
+    import ekpnp_torch
+    from ekpnp_torch.init import state_from_macro
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.kernels.step import step_diff
+    from ekpnp_torch.ops.collide import compute_macro
+    from ekpnp_torch.state import Macro
+    from ekpnp_torch.step import step as plain_step
+
+    cfg = ekpnp_torch.preset("reference", nx=8, ny=4, nz=9, dtype="float64",
+                             fft_method="matmul")
+    shape = cfg.grid.shape
+    c0 = 0.01 + 1e-3 * np.random.default_rng(0).standard_normal(shape)
+
+    def grad(device, step):
+        kw = dict(dtype=torch.float64, device=device)
+        x = torch.tensor(c0, requires_grad=True, **kw)
+        macro = Macro(rho=torch.full(shape, 1000.0, **kw),
+                      u=torch.zeros((3,) + shape, **kw), charge=x,
+                      chargen=torch.full(shape, 0.01, **kw),
+                      temp=torch.full(shape, 0.5, **kw))
+        st = state_from_macro(cfg, macro, torch.zeros(shape, **kw),
+                              torch.zeros((3,) + shape, **kw), 0.0)
+        for _ in range(3):
+            st = step(cfg, st)
+        out, _ = compute_macro(cfg, st)
+        loss = torch.sum(out.u ** 2) * 1e6 + torch.sum(out.charge ** 2)
+        (g,) = torch.autograd.grad(loss, x)
+        return loss.item(), g.cpu().numpy()
+
+    fs.reset_launches()
+    val, g = grad("cuda", step_diff)
+    torch.cuda.synchronize()
+    counts = dict(fs.launches)
+    if not counts["collide_kernel.hartley_x"] or not counts["stream_bc_kernel"]:
+        raise SystemExit(f"chip_smoke: step_diff launched no kernel: {counts}")
+    val_p, g_p = grad("cpu", lambda c, s: plain_step(c, s)[0])
+    rel = float(np.abs(g - g_p).max() / np.abs(g_p).max())
+    if rel > 1e-10 or abs(val / val_p - 1.0) > 1e-10:
+        raise SystemExit(f"chip_smoke: step_diff gradient rel {rel:.3e}, "
+                         f"loss {val!r} vs {val_p!r}")
+    log(f"(e) step_diff (f64, 8x4x9, 3 steps): gradient vs the CPU's plain "
+        f"gradient max rel {rel:.2e}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return dict(rel=rel, launches=counts)
+
+
 def main():
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1368,6 +1756,11 @@ def main():
     report["pod"] = run("pod", phase_pod, bw)
     report["cli"] = run("cli", phase_cli)
     report["sharded_cli"] = run("sharded_cli", phase_sharded_cli)
+    report["anchor"] = run("a_anchor", phase_anchor)
+    report["cli_full"] = run("b_cli_full", phase_cli_full, full["mlups"])
+    report["resume"] = run("c_resume", phase_resume)
+    report["bench"] = run("d_bench", phase_bench, head, full)
+    report["step_diff"] = run("e_step_diff", phase_step_diff)
     report["seconds"] = time.perf_counter() - t_start
     os.makedirs("smoke_out", exist_ok=True)
     sharded, pod = report["sharded"], report["pod"]
@@ -1375,6 +1768,10 @@ def main():
             (r["launches"], r["launches_phi_hx_off"])] + [fft["launches"]]
     runs += [c for m in sharded.values() for c in m["launches"]]
     runs += [m["launches"] for m in pod.values()]
+    runs += [report["anchor"]["launches"], report["cli_full"]["launches"],
+             report["cli_full"]["no_dump"]["launches"],
+             *report["bench"]["launches"].values(),
+             report["step_diff"]["launches"]]
     kernels = []
     for k in KERNELS:
         row = {"name": k, "route": "cuda", "source": SOURCE,

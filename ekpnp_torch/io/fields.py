@@ -22,14 +22,15 @@ from ..config import Config
 from ..state import Macro
 from .checkpoint import save_npz, save_reference_ascii
 from .tecplot import write_zone
+from .vtk import write_vtk
 
 
 def save_fields_sharded(dirpath: str, cfg: Config, mesh, macros, phi, E,
                         t: float, pid: int = 0, nprocs: int = 1) -> None:
     """Write the shards of the save-cadence fields to
     `dirpath`/shard_<pid>.npz (uncompressed) and, from process 0,
-    meta.json.  macros: per shard `Macro`; phi, E: per shard tensors (None
-    without EK)."""
+    meta.json.  macros: per shard `Macro`; phi, E: per shard tensors or
+    numpy arrays (None without EK)."""
     os.makedirs(dirpath, exist_ok=True)
     payload = {}
 
@@ -41,8 +42,9 @@ def save_fields_sharded(dirpath: str, cfg: Config, mesh, macros, phi, E,
                 return
             y0, _, x0, _ = mesh.block(cfg, i)
             off = [0] * (a.ndim - 2) + [y0, x0]
-            payload[f"{name}@{'_'.join(map(str, off))}"] = \
-                a.detach().cpu().numpy()
+            payload[f"{name}@{'_'.join(map(str, off))}"] = (
+                a.detach().cpu().numpy() if hasattr(a, "detach")
+                else np.asarray(a))
 
     for name in Macro._fields:
         put(name, [getattr(m, name) for m in macros])
@@ -97,10 +99,13 @@ def list_dump_dirs(outdir: str) -> list[str]:
 
 
 def merge_run_dir(outdir: str, cfg: Config, data_path: str = None,
-                  end_path: str = None, end_npz_path: str = None) -> int:
+                  end_path: str = None, end_npz_path: str = None,
+                  vtk: bool = False) -> int:
     """Assemble every per-shard dump under `outdir` into the artifacts a
     non-sharded run writes: the tecplot zones (data.dat) and, from the last
-    dump, data_end.dat and data_end.npz.  Returns the number of zones."""
+    dump, data_end.dat and data_end.npz; vtk=True also writes
+    fieldsNNNNNN.vtk per dump (what `run --vtk` writes without a mesh).
+    Returns the number of zones."""
     dirs = list_dump_dirs(outdir)
     if not dirs:
         raise ValueError(f"no fields_*.shards dumps under {outdir}")
@@ -109,6 +114,10 @@ def merge_run_dir(outdir: str, cfg: Config, data_path: str = None,
         for i, d in enumerate(dirs):
             macro, phi, E, t = _assemble(d, cfg)
             write_zone(fout, cfg, macro, phi, E, t, first=(i == 0))
+            if vtk:
+                step = os.path.basename(d)[len("fields_"):-len(".shards")]
+                write_vtk(os.path.join(outdir, f"fields{step}.vtk"), cfg,
+                          macro, phi, E, t)
     save_reference_ascii(end_path or os.path.join(outdir, "data_end.dat"),
                          cfg, macro, phi, E, t)
     save_npz(end_npz_path or os.path.join(outdir, "data_end.npz"), cfg, macro,

@@ -1,17 +1,19 @@
-"""ASCII Tecplot writer (port of ekpnp/io/tecplot.py, pure numpy/Python).
+"""ASCII Tecplot writer (port of ekpnp/io/tecplot.py).
 
 The same 14 variables, ZONE layout and wall-node linear extrapolation of
-(rho, c+, c-, u) before writing as the JAX package's writer.
+(rho, c+, c-, u) before writing as the JAX package's writer.  The body is
+formatted in C++ (io/native.py); `native.format_tecplot_plain` is its
+plain version.
 """
 from __future__ import annotations
 
-import io
 from typing import TextIO
 
 import numpy as np
 
 from ..config import Config
 from ..state import Macro
+from . import native
 
 HEADER = (
     'VARIABLES="x","y","z","u","v","w","p","charge","neg charge",'
@@ -62,10 +64,4 @@ def write_zone(fout: TextIO, cfg: Config, macro: Macro, phi, E, time: float,
     fout.write("\n")
     fout.write(f'ZONE T="t={time:g}", F=POINT, I = {g.nx}, J = {g.ny}, '
                f'K = {g.nz}\n')
-    data = np.stack(_gather_columns(cfg, macro, phi, E), axis=1)
-    buf = io.StringIO()
-    # reference format: 8 %g columns then 6 %10.6f columns
-    for row in data:
-        buf.write("%g %g %g %g %g %g %g %g %10.6f %10.6f %10.6f %10.6f "
-                  "%10.6f %10.6f\n" % tuple(row))
-    fout.write(buf.getvalue())
+    native.write_tecplot(fout, _gather_columns(cfg, macro, phi, E))

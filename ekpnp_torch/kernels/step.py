@@ -12,13 +12,19 @@ no x stage at all.  A chunk of n steps is cut at the stream rather than
 after it (`_chunk`): one collide, n - 1 fused passes (the stream of one
 step and the collide of the next), one stream.  State goes in and out with
 real phi either way.
+
+`step_diff` is the differentiable step: the kernel step forward, the plain
+step's VJP backward (a `torch.autograd.Function`).
 """
 from __future__ import annotations
+
+import torch
 
 from ..config import Config
 from ..ops.poisson import (phi_from_psi_hx, poisson_phi_from_rhs,
                            poisson_psi_hx_from_rhs, psi_hx_from_phi)
 from ..state import State
+from ..step import step as plain_step
 from .fused_step import (_CBC, _empty_like_fields, collide, fused_pass,
                          fused_step, resolve_hartley_x, stream_bc)
 
@@ -115,3 +121,39 @@ def multi_step(cfg: Config, state: State, n: int) -> State:
     if phi_hx_capable(cfg):
         return multi_step_hx(cfg, state, n)
     return multi_step_rhs(cfg, state, n)
+
+
+class _StepDiff(torch.autograd.Function):
+    """`step_diff`'s function: forward `step_fused`, backward the VJP of
+    the plain step re-run on the saved input."""
+
+    @staticmethod
+    def forward(ctx, cfg, *fields):
+        ctx.cfg = cfg
+        ctx.save_for_backward(*fields)
+        new, _ = step_fused(cfg, State(*fields))
+        return tuple(new)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with torch.enable_grad():
+            xs = [None if x is None else x.detach().requires_grad_(True)
+                  for x in ctx.saved_tensors]
+            new, _ = plain_step(ctx.cfg, State(*xs))
+            pairs = [(y, g) for y, g in zip(new, grads)
+                     if y is not None and g is not None]
+            live = [x for x in xs if x is not None]
+            got = iter(torch.autograd.grad(
+                [y for y, _ in pairs], live, [g for _, g in pairs],
+                allow_unused=True))
+        return (None, *(None if x is None else next(got) for x in xs))
+
+
+def step_diff(cfg: Config, state: State) -> State:
+    """One differentiable step (port of ekpnp/pallas/step.py
+    step_pallas_diff): the forward pass is the kernel step (`step_fused`:
+    the CUDA kernels on the card, their plain version on the CPU), the
+    backward pass the exact VJP of the plain step (ekpnp_torch/step.py),
+    re-run on the saved input.  The two forwards agree to roundoff
+    (tests/test_torch_step.py), so the gradient is the plain step's."""
+    return State(*_StepDiff.apply(cfg, *state))

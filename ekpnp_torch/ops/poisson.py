@@ -267,7 +267,9 @@ def _poisson_phi_ext(cfg: Config, charge, chargen, mesh=None):
         if y0 == 0 and x0 == 0:
             s[0, 0, 0] = 0.0
         out.append(s)
-    return _unshards([_pin_plates(cfg, p[: g.nz].real.to(dtype))
+    # .real is a strided view of the complex result: copied to a
+    # contiguous phi, which the kernels take
+    return _unshards([_pin_plates(cfg, p[: g.nz].real.to(dtype).contiguous())
                       for p in _xy(fft3, out, mesh, inverse=True)], mesh)
 
 

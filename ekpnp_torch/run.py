@@ -1,46 +1,112 @@
-"""CLI runner of the port (counterpart of ekpnp/run.py: `run`, `info` and
-`merge`).
+"""CLI runner of the port (counterpart of ekpnp/run.py: `run`, `info`,
+`merge` and `bench`).
 
 Usage:
     python -m ekpnp_torch run <preset> [--steps N] [--set key=value ...]
                               [--precision f32|f64] [--outdir DIR]
                               [--device cuda|cpu]
                               [--mesh slab|pencil [--mesh-devices N]]
-    python -m ekpnp_torch merge <preset> <rundir>
+                              [--resume CHECKPOINT] [--checkpoint-full]
+                              [--vtk] [--save-scalars] [--profile DIR]
+    python -m ekpnp_torch merge <preset> <rundir> [--vtk]
     python -m ekpnp_torch info <preset>
+    python -m ekpnp_torch bench [...]      (ekpnp_torch/benchmark.py)
 
 Outputs in --outdir, as the JAX package writes them:
-    data.dat      tecplot zones every NSAVE steps
-    umax.dat      (t, max uz) every printCurrent steps
-    series.csv    (step, t, umax, |u|max, current, <T>)
-    data_end.npz  macroscopic checkpoint (loads with ekpnp.io.checkpoint)
-    data_end.dat  reference-layout ASCII checkpoint
+    data.dat        tecplot zones every NSAVE steps
+    umax.dat        (t, max uz) every printCurrent steps
+    series.csv      (step, t, umax, |u|max, current, <T>)
+    data_end.npz    macroscopic checkpoint (either package's load_npz)
+    data_end.dat    reference-layout ASCII checkpoint
+    state_end.npz   lossless full state (--checkpoint-full; with --mesh the
+                    per-shard directory state_end.ckpt)
+    fieldsNNNNNN.vtk, nameNNNN.bin   with --vtk, --save-scalars
+
+--resume takes any of the four checkpoint kinds, the JAX package's too: a
+per-shard directory (restored onto the run's mesh, or onto one device),
+a full-state .npz (exact), a macroscopic .npz or a reference .dat
+(populations re-equilibrated).  A resumed run is not perturbed.
 
 On the card the time loop runs the hand-written fused step kernels
-(ekpnp_torch/kernels); on the CPU their plain version.  The perturbed first
-step (`perturb_first_step`) runs the plain step, on the card's tensors
-where the run is on the card, as the JAX package runs it through its
-oracle.  A non-finite state at a diagnostics event aborts with exit code
-2.  Dumps are written synchronously, inside the timed loop.
+(ekpnp_torch/kernels); on the CPU their plain version.  One step runs
+before the clock starts: the perturbed first step (`perturb_first_step`)
+through the plain step, under --mesh the plain per-shard step, else the
+kernel step.  Then, still before the clock, the kernel library is loaded
+(and built at first use) and every distinct chunk of the cadence is run
+once on a throwaway copy of the state, so the clock holds neither a build
+nor a first launch.  Series events and dumps run on a writer thread, in
+order: the main thread snapshots fresh tensors and goes on launching, and
+the writer copies them to the host (on a stream of its own, after an event
+recorded behind the snapshot) and formats them in C++ (io/native.py).  The
+clock stops when the last chunk is done, before the writer drains.  A
+non-finite state aborts with exit code 2 at the next event or at the end.
 
 --mesh shards the domain over N shards (default: one per device of the
 --device kind), placed round-robin over those devices, so `--device cpu
 --mesh slab --mesh-devices 4` runs 4 CPU shards and one card can hold
-several; the time loop is the sharded one (parallel/halo.py), its first
-step the plain per-shard step (parallel/mesh.py make_sharded_step).  A
-sharded run writes per-shard field dumps (fields_NNNNNN.shards/) in place
-of data.dat and data_end.*; `merge` assembles them (io/fields.py).  Not in
-this port yet: --distributed, --resume and --checkpoint-full (sharded
-checkpoints with them), --vtk, --save-scalars, --profile.
+several; the time loop is the sharded one (parallel/halo.py).  A sharded
+run writes per-shard field dumps (fields_NNNNNN.shards/) in place of
+data.dat and data_end.*; `merge` assembles them (io/fields.py).  Not in
+this port yet: --distributed.
 """
 from __future__ import annotations
 
 import argparse
 import ast
 import contextlib
+import json
 import os
+import queue
 import sys
+import threading
 import time
+from functools import lru_cache
+
+
+class _AsyncIO:
+    """Single-worker FIFO writer: series events and save-cadence dumps run
+    on a thread, overlapping the host copy and the formatting with the
+    next chunk.  FIFO order keeps the zones in order."""
+
+    def __init__(self):
+        # deep enough that series events queue behind a dump in flight
+        # without blocking the launching thread
+        self._q = queue.Queue(maxsize=8)
+        self._err = None
+        self._t = threading.Thread(target=self._loop, daemon=True)
+        self._t.start()
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                item()
+            except Exception as e:  # surfaced on the next submit/close
+                self._err = self._err or e
+            finally:
+                self._q.task_done()
+
+    def submit(self, fn):
+        if self._err:
+            raise self._err
+        self._q.put(fn)
+
+    def close(self):
+        self._q.put(None)
+        self._t.join()
+        if self._err:
+            raise self._err
+
+
+class _NonFinite(RuntimeError):
+    """Raised on the writer thread by the finite guard; surfaces at the
+    next submit or close (at worst one more chunk runs before the abort)."""
+
+    def __init__(self, step):
+        super().__init__(f"non-finite state detected at step {step}")
+        self.step = step
 
 
 def _next_multiple(done, n, off):
@@ -81,10 +147,10 @@ def build_config(args):
 
 def cmd_merge(args):
     """Assemble a sharded run's per-shard field dumps into data.dat and
-    data_end.dat / .npz (io/fields.py)."""
+    data_end.dat / .npz (io/fields.py); --vtk also fieldsNNNNNN.vtk."""
     from .io.fields import merge_run_dir
 
-    n = merge_run_dir(args.rundir, build_config(args))
+    n = merge_run_dir(args.rundir, build_config(args), vtk=args.vtk)
     print(f"merged {n} zones -> {os.path.join(args.rundir, 'data.dat')} "
           f"(+ data_end.dat, data_end.npz)")
     return 0
@@ -95,6 +161,103 @@ def cmd_info(args):
 
     print(dimensionless_banner(build_config(args)))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# the steps before the clock, and the writer's host copies
+# ---------------------------------------------------------------------------
+
+def _clock() -> float:
+    """The run loop's clock."""
+    return time.perf_counter()
+
+
+def _prepare(dev) -> None:
+    """Load the kernel library the time loop launches (nvcc builds it at
+    first use), on the card; the CPU runs the plain versions."""
+    if dev.type == "cuda":
+        from .kernels.fused_step import _load
+
+        _load()
+
+
+def _tree_map(fn, x):
+    """x with fn applied to every tensor of it (a state, a snapshot, a
+    sharded field: tensors in tuples, named tuples and lists)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, list):
+        return [_tree_map(fn, v) for v in x]
+    if isinstance(x, tuple):
+        vals = [_tree_map(fn, v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _tensors(x):
+    """Every tensor of x, flat."""
+    out = []
+    _tree_map(out.append, x)
+    return out
+
+
+def _warm(advance, state, sizes, dev) -> None:
+    """Run a chunk of each size in `sizes` once on a throwaway copy of the
+    state, so that the first launch of every kernel form, the solve's
+    library set-up and the allocator's buffers come before the clock.  A
+    chunk of min(n, 2) steps launches every form and buffer a chunk of n
+    does (n = 1: a collide and a stream; n >= 2: a pass between them), so
+    that is what runs.  Skipped on the card where a second state would not
+    fit the free memory."""
+    import torch
+
+    if dev.type == "cuda":
+        need = {}
+        for t in _tensors(state):
+            need[t.device] = need.get(t.device, 0) + t.numel() * t.element_size()
+        if any(2.2 * n > torch.cuda.mem_get_info(d)[0] for d, n in need.items()):
+            return
+    for n in sorted({min(n, 2) for n in sizes}):
+        advance(_tree_map(torch.clone, state), n)
+
+
+def _record(x):
+    """Events recorded behind the work that made the CUDA tensors of `x`,
+    by device."""
+    import torch
+
+    events = {}
+    for t in _tensors(x):
+        if t.device.type == "cuda" and t.device not in events:
+            events[t.device] = torch.cuda.Event()
+            events[t.device].record(torch.cuda.current_stream(t.device))
+    return events
+
+
+@lru_cache(maxsize=None)
+def _copy_stream(device):
+    import torch
+
+    return torch.cuda.Stream(device=device)
+
+
+def _host(x, events):
+    """`x` with every tensor copied to a numpy array.  A card's tensor is
+    copied on the copy stream after its event, so the copy waits for the
+    snapshot only, not for the chunks launched since."""
+    import torch
+
+    def fetch(t):
+        if t.device.type != "cuda":
+            return t.numpy()
+        stream = _copy_stream(t.device)
+        stream.wait_event(events[t.device])
+        with torch.cuda.stream(stream):
+            return t.to("cpu").numpy()
+
+    return _tree_map(fetch, x)
 
 
 def cmd_run(args):
@@ -113,6 +276,7 @@ def cmd_run(args):
     from .init import initialize
     from .io import checkpoint as ckpt
     from .io import tecplot
+    from .kernels import fused_step as fs
     from .kernels.step import multi_step, step_fused
     from .ops.collide import compute_macro
     from .ops.poisson import efield
@@ -124,10 +288,11 @@ def cmd_run(args):
         mesh = pmesh.make_mesh(pmesh.mesh_devices(dev, args.mesh_devices),
                                pencil=args.mesh == "pencil")
         pmesh.check_divisibility(cfg, mesh)
+    devices = sorted(set(mesh.devices if mesh is not None else [dev]), key=str)
 
     def sync():
         if dev.type == "cuda":
-            for d in set(mesh.devices if mesh is not None else [dev]):
+            for d in devices:
                 torch.cuda.synchronize(d)
 
     print(dimensionless_banner(cfg))
@@ -139,25 +304,41 @@ def cmd_run(args):
           + ("  fused step: CUDA kernels" if dev.type == "cuda"
              else "  fused step: plain PyTorch"))
     if mesh is not None:
-        print(f"  mesh: {mesh.shape} over {len(set(mesh.devices))} "
-              f"device(s); field dumps per shard (fields_NNNNNN.shards/), "
-              f"run `merge {args.preset} <outdir>` for data.dat")
+        print(f"  mesh: {mesh.shape} over {len(devices)} device(s); field "
+              f"dumps per shard (fields_NNNNNN.shards/), run "
+              f"`merge {args.preset} <outdir>` for data.dat")
 
     outdir = cfg.run.outdir
     os.makedirs(outdir, exist_ok=True)
 
-    print("Initializing (PB double-layer relaxation)...")
-    t_init = time.perf_counter()
-    state, _, pb_res = initialize(cfg, device=dev, with_residual=True)
-    sync()
-    if pb_res is not None:
-        print(f"  PB init: {cfg.physics.pb_iters} iterations in "
-              f"{time.perf_counter() - t_init:.2f} s, final relative "
-              f"update {float(pb_res):.3e} (tune with --set pb_iters=N)")
+    resumed_sharded = False
+    if args.resume:
+        if ckpt.is_sharded_checkpoint(args.resume):
+            print(f"Restoring from {args.resume} (lossless per-shard resume, "
+                  f"mesh-elastic)...")
+            state = ckpt.load_sharded(args.resume, cfg, mesh, device=dev)
+            resumed_sharded = mesh is not None
+        elif ckpt.is_full_checkpoint(args.resume):
+            print(f"Restoring from {args.resume} (lossless full-state resume)...")
+            state = ckpt.load_full_npz(args.resume, cfg, device=dev)
+        else:
+            print(f"Restoring from {args.resume} (populations re-equilibrated)...")
+            load = (ckpt.load_reference_ascii if args.resume.endswith(".dat")
+                    else ckpt.load_npz)
+            state = load(args.resume, cfg, device=dev)
+    else:
+        print("Initializing (PB double-layer relaxation)...")
+        t_init = time.perf_counter()
+        state, _, pb_res = initialize(cfg, device=dev, with_residual=True)
+        sync()
+        if pb_res is not None:
+            print(f"  PB init: {cfg.physics.pb_iters} iterations in "
+                  f"{time.perf_counter() - t_init:.2f} s, final relative "
+                  f"update {float(pb_res):.3e} (tune with --set pb_iters=N)")
+    if mesh is not None and not resumed_sharded:
+        state = pmesh.shard_state(cfg, mesh, state)
 
-    def efield_now(st):
-        return efield(cfg, st.phi) if cfg.physics.enable_ek else None
-
+    ek = cfg.physics.enable_ek
     nsteps = cfg.run.nsteps
     nsave = max(1, cfg.run.nsave)
     ncur = max(1, cfg.run.print_current)
@@ -165,11 +346,12 @@ def cmd_run(args):
     cur_off = 2 % ncur if cfg.run.compat_cadence else 0
 
     if mesh is None:
-        def zone(fout, st, first=False):
+        def snapshot(st):
+            """Fresh tensors of a dump (the next chunk reuses the state's
+            buffers): (Macro, phi, E, t)."""
             macro, _ = compute_macro(cfg, st)
-            tecplot.write_zone(fout, cfg, macro, st.phi, efield_now(st),
-                               float(st.t), first=first)
-            return macro
+            return (macro, None if st.phi is None else st.phi.clone(),
+                    efield(cfg, st.phi) if ek else None, st.t.clone())
 
         def advance(st, n):
             return multi_step(cfg, st, n)
@@ -177,77 +359,155 @@ def cmd_run(args):
         from .io.fields import save_fields_sharded
         from .parallel.halo import shard_macros
 
-        state = pmesh.shard_state(cfg, mesh, state)
         chunk_fns = {}
 
-        def zone(fout, st, first=False):
+        def snapshot(st):
             parts = shard_macros(cfg, mesh, st)
-            save_fields_sharded(
-                os.path.join(outdir, f"fields_{done:06d}.shards"), cfg, mesh,
-                [m for m, _ in parts], st.phi,
-                [E for _, E in parts] if cfg.physics.enable_ek else None,
-                float(st.t))
+            return ([m for m, _ in parts],
+                    [p.clone() for p in st.phi] if ek else None,
+                    [E for _, E in parts] if ek else None, st.t.clone())
 
         def advance(st, n):
             if n not in chunk_fns:
                 chunk_fns[n] = pmesh.make_sharded_multi_step(cfg, mesh, n)
             return chunk_fns[n](st)
 
-    done = 0
-    with contextlib.ExitStack() as files:
-        fout = (files.enter_context(open(os.path.join(outdir, "data.dat"), "w"))
-                if mesh is None else None)
-        fumax = files.enter_context(open(os.path.join(outdir, "umax.dat"), "w"))
-        fcsv = files.enter_context(open(os.path.join(outdir, "series.csv"), "w"))
+    files = {}  # data.dat of a run without a mesh, opened below
+
+    def write(d, snap, kind):
+        """Write a dump's host arrays; kind: "first" (zone 0), "save" (a
+        cadence dump) or "final"."""
+        macro, phi, E, t = snap
+        t = float(t)
+        if mesh is not None:
+            save_fields_sharded(os.path.join(outdir, f"fields_{d:06d}.shards"),
+                                cfg, mesh, macro, phi, E, t)
+            return
+        tecplot.write_zone(files["data"], cfg, macro, phi, E, t,
+                           first=kind == "first")
+        if args.save_scalars and kind == "save":
+            from .io.scalars import save_scalars
+
+            save_scalars(outdir, d, cfg, macro, phi, E)
+        if args.vtk and kind != "first":
+            from .io.vtk import write_vtk
+
+            write_vtk(os.path.join(outdir, f"fields{d:06d}.vtk"), cfg, macro,
+                      phi, E, t)
+
+    def dump_now(d, st, kind):
+        snap = snapshot(st)
+        snap = _host(snap, _record(snap))
+        write(d, snap, kind)
+        return snap
+
+    prof = None
+    with contextlib.ExitStack() as stack:
+        if mesh is None:
+            files["data"] = stack.enter_context(
+                open(os.path.join(outdir, "data.dat"), "w"))
+        fumax = stack.enter_context(open(os.path.join(outdir, "umax.dat"), "w"))
+        fcsv = stack.enter_context(open(os.path.join(outdir, "series.csv"), "w"))
         fcsv.write("step,t,umax_uz,umax_mag,current,mean_T\n")
-        zone(fout, state, first=True)
+        t_zone0 = time.perf_counter()
+        dump_now(0, state, "first")
+        t_zone0 = time.perf_counter() - t_zone0
 
         # one step before the clock starts (the reference times the loop
         # only); when configured it seeds the convection pattern through
-        # the plain step, which the kernels do not implement; under a mesh
-        # it is the plain per-shard step either way, as the JAX package's
-        # first sharded step is its oracle's
+        # the plain step, which the kernels do not implement (never on a
+        # resumed run); under a mesh it is the plain per-shard step, as the
+        # JAX package's first sharded step is its oracle's
+        perturb0 = bool(cfg.run.perturb_first_step) and not args.resume
         if mesh is not None:
-            state, _ = pmesh.make_sharded_step(
-                cfg, mesh, perturb=cfg.run.perturb_first_step)(state)
-        elif cfg.run.perturb_first_step:
+            state, _ = pmesh.make_sharded_step(cfg, mesh, perturb=perturb0)(state)
+        elif perturb0:
             state, _ = plain_step(cfg, state, perturb=True)
         else:
             state, _ = step_fused(cfg, state)
-        sync()
         done = steps_warm = 1
-
-        t0 = time.perf_counter()
-        while done < nsteps:
-            nxt = min(_next_multiple(done, nsave, save_off),
-                      _next_multiple(done, ncur, cur_off), nsteps)
-            state = advance(state, nxt - done)
-            done = nxt
-            if done % ncur == cur_off or done == nsteps:
-                um, umag, cur, mean_t, finite = (
-                    x.item() for x in series_point(cfg, state, mesh))
-                t_now = float(state.t)
-                fumax.write(f"{t_now:10.6f} {um:10.6f}\n")
-                fcsv.write(f"{done},{t_now:.9e},{um:.9e},{umag:.9e},"
-                           f"{cur:.9e},{mean_t:.9e}\n")
-                print(f"Iteration: {done}, physical time: {t_now:g}, "
-                      f"Current = {cur:g}, umax = {um:g}")
-                if not finite:
-                    print(f"ERROR: non-finite state detected at step {done}; "
-                          f"aborting", file=sys.stderr)
-                    return 2
-            if done % nsave == save_off and done < nsteps:
-                zone(fout, state)
+        sizes, d = set(), done
+        while d < nsteps:
+            nxt = min(_next_multiple(d, nsave, save_off),
+                      _next_multiple(d, ncur, cur_off), nsteps)
+            sizes.add(nxt - d)
+            d = nxt
+        _prepare(dev)
+        _warm(advance, state, sizes, dev)
         sync()
-        runtime = time.perf_counter() - t0
-        macro = zone(fout, state)
+
+        aio = _AsyncIO()
+        if args.profile:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+            prof = profile(activities=acts)
+            prof.start()
+        writer_s = []  # each cadence dump's copy, formatting and write
+        fs.reset_launches()
+        t0 = _clock()
+        try:
+            while done < nsteps:
+                nxt = min(_next_multiple(done, nsave, save_off),
+                          _next_multiple(done, ncur, cur_off), nsteps)
+                state = advance(state, nxt - done)
+                done = nxt
+                if done % ncur == cur_off or done == nsteps:
+                    vals = (*series_point(cfg, state, mesh), state.t.clone())
+
+                    def _series(vals=vals, ev=_record(vals), d=done):
+                        um, umag, cur, mean_t, finite, t_now = (
+                            float(x) for x in _host(vals, ev))
+                        fumax.write(f"{t_now:10.6f} {um:10.6f}\n")
+                        fcsv.write(f"{d},{t_now:.9e},{um:.9e},{umag:.9e},"
+                                   f"{cur:.9e},{mean_t:.9e}\n")
+                        print(f"Iteration: {d}, physical time: {t_now:g}, "
+                              f"Current = {cur:g}, umax = {um:g}", flush=True)
+                        if not finite:
+                            raise _NonFinite(d)
+
+                    aio.submit(_series)
+                if done % nsave == save_off and done < nsteps:
+                    snap = snapshot(state)
+
+                    def _dump(snap=snap, ev=_record(snap), d=done):
+                        t_w = time.perf_counter()
+                        write(d, _host(snap, ev), "save")
+                        writer_s.append(time.perf_counter() - t_w)
+
+                    aio.submit(_dump)
+            sync()
+            runtime = _clock() - t0
+            launches = {k: v for k, v in fs.launches.items() if v}
+            if prof is not None:
+                prof.stop()
+                os.makedirs(args.profile, exist_ok=True)
+                trace = os.path.join(args.profile, "trace.json")
+                prof.export_chrome_trace(trace)
+                print(f"  profiler trace written to {trace}")
+            t_drain = time.perf_counter()
+            aio.close()  # drain the events and dumps before the final zone
+            t_drain = time.perf_counter() - t_drain
+        except _NonFinite as e:
+            print(f"ERROR: {e}; aborting", file=sys.stderr)
+            with contextlib.suppress(_NonFinite):
+                aio.close()  # let the writer finish before the files close
+            return 2
+        macro, phi, E, t = dump_now(max(nsteps, done), state, "final")
 
     if mesh is None:
-        E_io = efield_now(state)
-        ckpt.save_npz(os.path.join(outdir, "data_end.npz"), cfg, macro,
-                      state.phi, E_io, float(state.t))
+        ckpt.save_npz(os.path.join(outdir, "data_end.npz"), cfg, macro, phi,
+                      E, t)
         ckpt.save_reference_ascii(os.path.join(outdir, "data_end.dat"), cfg,
-                                  macro, state.phi, E_io, float(state.t))
+                                  macro, phi, E, t)
+    if args.checkpoint_full:
+        if mesh is not None:
+            ckpt.save_sharded(os.path.join(outdir, "state_end.ckpt"), cfg,
+                              state, mesh)
+        else:
+            ckpt.save_full_npz(os.path.join(outdir, "state_end.npz"), cfg,
+                               state)
 
     steps_timed = max(nsteps, done) - steps_warm
     nodes_updated = steps_timed * cfg.grid.num_nodes
@@ -257,11 +517,30 @@ def cmd_run(args):
           f"{steps_warm} warm-up)")
     print(f"       clock runtime: {runtime:.3f} (s)")
     print(f"               speed: {mlups:.2f} (Mlups)")
+    # every active field's directions, read and written once a step (the
+    # reference's own printout counts the fluid field only, main.cu:236-245)
+    nsc = ((2 if cfg.physics.two_species else 1) if ek else 0) + (
+        1 if cfg.physics.enable_thermal else 0)
+    dirs = cfg.lattice.Q + nsc * cfg.scalar_lat.Q
+    dsize = 8 if cfg.run.dtype == "float64" else 4
+    gib = (nodes_updated * dirs * 2 * dsize / (1024.0 ** 3) / runtime
+           if runtime > 0 else 0.0)
+    print(f"           bandwidth: {gib:.1f} (GiB/s), all-field population "
+          f"traffic")
+    print(f"       writer thread: {len(writer_s)} dumps in "
+          f"{sum(writer_s):.3f} s (host copy, formatting, write), drained "
+          f"{t_drain:.3f} s after the clock; zone 0 {t_zone0:.3f} s")
+    print(f"     kernel launches: {json.dumps(launches)}")
     return 0
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "bench":
+        # everything after "bench" goes to the benchmark's own parser
+        from .benchmark import main as bench_main
+
+        return bench_main(argv[1:])
     ap = argparse.ArgumentParser(prog="ekpnp_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -288,6 +567,25 @@ def main(argv=None):
         "--mesh-devices", type=int, default=0,
         help="number of shards for --mesh, round-robin over the devices of "
              "the --device kind (default: one per device)")
+    p_run.add_argument(
+        "--resume", default=None,
+        help="checkpoint to continue from: a per-shard directory, a full "
+             "or macroscopic .npz, or a reference .dat")
+    p_run.add_argument(
+        "--checkpoint-full", action="store_true",
+        help="also write the lossless full state: state_end.npz, or with "
+             "--mesh the per-shard directory state_end.ckpt")
+    p_run.add_argument(
+        "--vtk", action="store_true",
+        help="also write binary VTK snapshots fieldsNNNNNN.vtk at every save "
+             "step and at the end")
+    p_run.add_argument(
+        "--save-scalars", action="store_true",
+        help="per-field binary dumps nameNNNN.bin at every save step")
+    p_run.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a torch.profiler Chrome trace of the timed loop to "
+             "DIR/trace.json")
     p_run.set_defaults(fn=cmd_run)
 
     p_info = sub.add_parser("info", help="print configuration banner")
@@ -299,7 +597,13 @@ def main(argv=None):
         "(fields_NNNNNN.shards/) into data.dat + data_end.dat/.npz")
     common(p_merge)
     p_merge.add_argument("rundir", help="the sharded run's --outdir")
+    p_merge.add_argument("--vtk", action="store_true",
+                         help="also write fieldsNNNNNN.vtk per dump")
     p_merge.set_defaults(fn=cmd_merge)
+
+    sub.add_parser(
+        "bench", help="one-card MLUPS / Poisson benchmark (one JSON line); "
+        "all further flags go to ekpnp_torch.benchmark", add_help=False)
 
     args = ap.parse_args(argv)
     return args.fn(args)

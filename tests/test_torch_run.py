@@ -56,6 +56,17 @@ def test_chip_smoke_golden_copy_is_the_golden():
     assert chip_smoke.GOLDEN == GOLDEN
 
 
+def test_chip_smoke_pinned_tail_copy_is_the_pinned_tail():
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    from test_production_run import _PINNED_TAIL
+
+    assert chip_smoke.PINNED_TAIL == _PINNED_TAIL
+
+
 def test_kernel_constant_blocks_match_the_cuda_structs():
     """The packed (ints, consts) blocks have the length of HostInts /
     HostConsts in csrc/fused_step.cu, field by field."""
