@@ -45,19 +45,24 @@ one card (a mesh may hold a device more than once):
      slab 4 and pencil 2x2 meshes, cases A-J and 50x8x51, f64 and f32, two
      rounds per case (the halo exchange of parallel/halo.py between): the
      .halo collide forms (plain RHS; with EK also hartley_x and phi_hx) and
-     the .shard_x collide on pencils, stream_bc .halo on both, <= 1e-12
-     (f64) / 1e-5 (f32); 3 sharded steps against 3 single-device steps on
-     the same route; the overlapped chunk equal to the serial one bit for
-     bit;
-  4b. golden: `reference`, f64, 60 steps on a slab-2 mesh (phi_hx route per
-     shard, its launches counted), rtol 1e-9;
+     the .shard_x collide on pencils, the fused pass of each form
+     (fused_pass_kernel .halo / .shard_x, pulling across the shard's edges
+     from the exchanged rows and a pencil's columns), stream_bc .halo on
+     both, <= 1e-12 (f64) / 1e-5 (f32); 3 sharded chunk steps against 3
+     single-device steps on the same route, and against 3 two-launch
+     sharded steps (step_halo) bit for bit; the overlapped chunk equal to
+     the serial one bit for bit;
+  4b. golden: `reference`, f64, one chunk of 60 steps on a slab-2 mesh
+     (phi_hx route per shard, its launches counted), rtol 1e-9;
   5b. full size: `ek-pnp-thermal` 256x256x257 f32 from phase 5's start
-     state, 20 steps on slab 4 (phi_hx .halo route) and 20 on pencil 2x2
-     (shard_x route), each held to 20 single-device steps (F32_SHARDED);
-     on slab 4 also 10 steps with phi_hx off (hartley_x .halo) and 10 with
-     fft_method "fft" (plain-RHS .halo); each form timed by CUDA events on
-     shard 0 and held to its plain version there, the row product on
-     shard 0's RHS rows too.  Then the `pod` preset
+     state, one chunk of 20 steps on slab 4 (phi_hx .halo route) and one
+     on pencil 2x2 (shard_x route), each held to 20 single-device steps
+     (F32_SHARDED) and to 20 two-launch sharded steps bit for bit; on slab
+     4 also 10 steps with phi_hx off (hartley_x .halo) and 10 with
+     fft_method "fft" (plain-RHS .halo); each collide form, its fused
+     pass (beside the two launches it replaces) and the stream timed by
+     CUDA events on shard 0 and held to their plain versions there, the
+     row product on shard 0's RHS rows too.  Then the `pod` preset
      (BASELINE config 5, 512x256x257, f32, every field D3Q27, PB init with
      pb_omega 0.02): 50 steps on slab 4 and 50 on pencil 2x2 (re-sharded
      from the slab run's state), ms/step, MLUPS, per-launch, exchange and
@@ -88,8 +93,9 @@ then the production run loop, through the entry points a user calls:
   7. one JSON line describing each CUDA kernel form;
   8. the final line {"ok": true, "device": {...}}.
 Launch counts are zeroed before each main-path run and read after it: a
-sharded run must show steps x shards launches of its route's forms (a
-collide and a stream per step and shard) and none of any other; the CLI
+sharded run must show, per chunk and shard, one collide and one stream of
+its route's forms and a fused pass for every other step, and none of any
+other form; the CLI
 zeroes them as its clock starts and prints them after it (a, b), the
 benchmark puts those of its timed windows into its line (d).  Details
 go to smoke_out/chip_smoke.json.
@@ -160,6 +166,10 @@ REPLACES = {
     "collide_kernel.phi_hx.halo": "ekpnp/pallas/fused_step.py:516",
     "collide_kernel.shard_x": "ekpnp/pallas/fused_step.py:521",
     "stream_bc_kernel.halo": "ekpnp/pallas/fused_step.py:570",
+    "fused_pass_kernel.halo": "ekpnp/pallas/fused_step.py:516",
+    "fused_pass_kernel.hartley_x.halo": "ekpnp/pallas/fused_step.py:516",
+    "fused_pass_kernel.phi_hx.halo": "ekpnp/pallas/fused_step.py:516",
+    "fused_pass_kernel.shard_x": "ekpnp/pallas/fused_step.py:521",
 }
 # row products per step of each collide form (its collide or fused pass):
 # the RHS (hartley_x); psi and the RHS (phi_hx), and on a slab shard psi's
@@ -192,9 +202,14 @@ def log(*a):
     print(*a, flush=True)
 
 
-def fused_name(form):
-    """The fused pass of a collide form."""
-    return form.replace("collide_kernel", "fused_pass_kernel")
+def fused_name(form, mesh=None):
+    """The fused pass of a collide form; on a shard of `mesh` the pass's
+    .halo / .shard_x form (a shard's collide without EK takes no halo and
+    keeps the one-device name, its pass pulls across the shard's edges)."""
+    name = form.replace("collide_kernel", "fused_pass_kernel")
+    if mesh is not None and not name.endswith((".halo", ".shard_x")):
+        name += ".shard_x" if mesh.pencil else ".halo"
+    return name
 
 
 def fmt_err(e):
@@ -282,7 +297,8 @@ def phase_build():
     fam, fam_spill, each = {}, {}, {}
     for name in re.findall(r"Compiling entry function '(\w+)'", info["log"]):
         m = re.search(r"(hartley_rows_kernel|collide_kernel|fused_pass_kernel|"
-                      r"stream_bc_halo_kernel|stream_bc_kernel)"
+                      r"fused_pass_halo_kernel|stream_bc_halo_kernel|"
+                      r"stream_bc_kernel)"
                       r"I([fd])(?:Li(\d+)ELi(\d+)E)?(?:Lb([01])E)?", name)
         rest = info["log"][info["log"].index(name):]
         used = re.search(r"Used (\d+) registers", rest)
@@ -300,10 +316,11 @@ def phase_build():
         f"spill stores max {max(spills or [0])} B; registers / spill stores "
         f"(B) by kernel: " + ", ".join(f"{k} {v}/{fam_spill[k]}"
                                        for k, v in sorted(fam.items())))
-    log("  fused_pass_kernel by type and lattice pair QF/QS: " + ", ".join(
-        f"{k.replace('fused_pass_kernel ', '')} {r}/{sp}"
-        for k, (r, sp) in sorted(each.items())
-        if k.startswith("fused_pass_kernel")))
+    for fam_name in ("fused_pass_kernel", "fused_pass_halo_kernel"):
+        log(f"  {fam_name} by type and lattice pair QF/QS: " + ", ".join(
+            f"{k.replace(fam_name + ' ', '')} {r}/{sp}"
+            for k, (r, sp) in sorted(each.items())
+            if k.startswith(fam_name + " ")))
     return {"nvcc_s": info["seconds"], "load_s": secs,
             "registers_max": max(regs or [0]), "spill_max": max(spills or [0]),
             "registers": fam, "spill_stores": fam_spill,
@@ -465,17 +482,15 @@ def _golden_devs(cfg, state, label):
     return devs
 
 
-def _route(form, steps, stream="stream_bc_kernel", chunks=None):
-    """The launches of `steps` steps of collide form `form` and their row
-    products: on one device in `chunks` chunks, a collide and a stream per
-    chunk and a fused pass of the form for every other step; on shards
-    (chunks None), a collide and a stream per step."""
-    if chunks is None:
-        want = {form: steps, stream: steps}
-    else:
-        want = {form: chunks, stream: chunks}
-        if steps > chunks:
-            want[fused_name(form)] = steps - chunks
+def _route(form, steps, chunks, stream="stream_bc_kernel"):
+    """The launches of `steps` steps of collide form `form` in `chunks`
+    chunks and their row products: a collide and a stream per chunk and a
+    fused pass of the form for every other step.  On shards, steps and
+    chunks count each shard's (steps x shards, chunks x shards), the
+    stream is .halo and the pass the collide form's .halo / .shard_x."""
+    want = {form: chunks, stream: chunks}
+    if steps > chunks:
+        want[fused_name(form)] = steps - chunks
     if ROWS_PER_COLLIDE.get(form):
         want["hartley_rows_kernel"] = ROWS_PER_COLLIDE[form] * steps
     return want
@@ -618,7 +633,7 @@ def _expect_launches(label, counts, form, steps, chunks):
     """The run launched `form` and stream_bc_kernel once per chunk, the
     form's fused pass for every other step, the form's row products, and
     no other kernel form."""
-    _want_launches(counts, label, **_route(form, steps, chunks=chunks))
+    _want_launches(counts, label, **_route(form, steps, chunks))
 
 
 def fused_vs_two_launch(cfg, state, steps):
@@ -949,17 +964,56 @@ def _record(errs, label, got, want, names=("f", "h", "hn", "g", "rhs")):
         errs[(label, fld)] = max(errs.get((label, fld), 0.0), rel_err(a, b))
 
 
+def _shard_steps(cfg, mesh, state, n):
+    """n two-launch sharded steps (`step_halo`: a collide and a stream per
+    step and shard) on the route make_halo_multi_step takes: phi_hx (one
+    encode, the steps, one decode) where a slab shard can carry psi_hx,
+    else real phi.  `state` is a sharded state, not donated."""
+    from ekpnp_torch.kernels.step import phi_hx_capable
+    from ekpnp_torch.ops.poisson import phi_from_psi_hx, psi_hx_from_phi
+    from ekpnp_torch.parallel.halo import step_halo
+    from ekpnp_torch.parallel.mesh import local_cfg
+
+    hx = not mesh.pencil and phi_hx_capable(local_cfg(cfg, mesh))
+    if hx:
+        state = state._replace(phi=psi_hx_from_phi(cfg, state.phi, mesh))
+    for _ in range(n):
+        state = step_halo(cfg, mesh, state, phi_hx=hx)
+    if hx:
+        state = state._replace(phi=phi_from_psi_hx(cfg, state.phi, mesh))
+    return state
+
+
+def _shards_equal(a, b):
+    """Whether two sharded states are equal bit for bit, shard by shard."""
+    import torch
+
+    for x, y in zip(a, b):
+        if (x is None) != (y is None):
+            return False
+        if x is None:
+            continue
+        if torch.is_tensor(x):
+            x, y = [x], [y]
+        if not all(torch.equal(u, v) for u, v in zip(x, y)):
+            return False
+    return True
+
+
 def phase_sharded_kernels_vs_plain():
     """3b: every sharded form against its plain version, per shard, on the
-    meshes of MESHES; then the sharded chunk against the single-device one,
-    and overlapped against serial."""
+    meshes of MESHES: the collide forms, the stream, and the fused pass of
+    every form on the collide's post-collision set with the exchanged edge
+    rows (and a pencil's columns); then the sharded chunk against the
+    single-device one, against as many two-launch sharded steps (bit for
+    bit), and overlapped against serial."""
     import torch
 
     import ekpnp_torch
     from ekpnp_torch.kernels import fused_step as fs
     from ekpnp_torch.kernels.step import multi_step, multi_step_rhs
-    from ekpnp_torch.parallel.halo import (make_halo_multi_step, post_rows,
-                                           step_halo)
+    from ekpnp_torch.parallel.halo import (make_halo_multi_step, post_edges,
+                                           post_rows, step_halo)
     from ekpnp_torch.parallel.mesh import gather_state, local_cfg, shard_state
 
     worst = {}
@@ -981,6 +1035,16 @@ def phase_sharded_kernels_vs_plain():
                             _record(errs, kname, k, fs.collide_reference(
                                 cfg_l, *x, phi_halo=h, **kw))
                             posts.append(k[:4])
+                        # the pass of this form on the collide's set: the
+                        # stream of this round and the collide of the next
+                        for x, h, p, (r, c) in zip(ins, halos, posts,
+                                                   post_edges(cfg_l, mesh,
+                                                              posts)):
+                            args = dict(rows=r, cols=c, phi_halo=h, **kw)
+                            _record(errs, fused_name(kname, mesh),
+                                    fs.fused_pass(cfg_l, *p, x[4], **args),
+                                    fs.fused_pass_reference(cfg_l, *p, x[4],
+                                                            **args))
                         if kw.get("hartley_x") is False:
                             for p, r in zip(posts, post_rows(cfg_l, mesh,
                                                              posts)):
@@ -989,18 +1053,22 @@ def phase_sharded_kernels_vs_plain():
                                         fs.stream_bc_reference(cfg_l, *p,
                                                                rows=r))
                     sh = step_halo(cfg, mesh, sh)
-                # the whole chunk: against one device, and overlap vs serial
+                # the whole chunk: against one device, against the
+                # two-launch steps (bit for bit), and overlap vs serial
                 single = multi_step_rhs if mesh.pencil else multi_step
                 want = single(cfg, _clone(st), 3)
-                runs = [gather_state(mesh, make_halo_multi_step(
-                    cfg, mesh, 3, overlap=ov_)(shard_state(cfg, mesh, st)))
-                    for ov_ in (True, False)]
-                _record(errs, f"chunk {mname}", runs[0][:5], want[:5],
+                runs = [make_halo_multi_step(cfg, mesh, 3, overlap=ov_)(
+                    shard_state(cfg, mesh, st)) for ov_ in (True, False)]
+                two = _shard_steps(cfg, mesh, shard_state(cfg, mesh, st), 3)
+                if not _shards_equal(runs[0], two):
+                    raise SystemExit(f"chip_smoke: {case} {dtype} {mname}: "
+                                     f"the fused chunk != 3 two-launch steps")
+                if not _shards_equal(runs[0], runs[1]):
+                    raise SystemExit(f"chip_smoke: {case} {dtype} {mname}:"
+                                     f" overlapped chunk != serial")
+                _record(errs, f"chunk {mname}",
+                        gather_state(mesh, runs[0])[:5], want[:5],
                         names=("f", "h", "hn", "g", "phi"))
-                for a, b in zip(runs[0], runs[1]):
-                    if a is not None and not torch.equal(a, b):
-                        raise SystemExit(f"chip_smoke: {case} {dtype} {mname}:"
-                                         f" overlapped chunk != serial")
             torch.cuda.synchronize()
             log(f"  sharded case {case:8s} {dtype}: " + " ".join(
                 f"{lab.replace('_kernel', '')}"
@@ -1011,15 +1079,17 @@ def phase_sharded_kernels_vs_plain():
                     raise SystemExit(f"chip_smoke: sharded {case} {dtype} {lab}"
                                      f" {fld} rel err {e:.3e} > {TOL[dtype]}")
                 worst[(dtype, lab)] = max(worst.get((dtype, lab), 0.0), e)
-    log("sharded kernels vs plain (every form, slab 2 / slab 4 / pencil 2x2), "
-        "chunks vs one device: within 1e-12 (f64) / 1e-5 (f32); overlapped "
-        "chunk = serial bit for bit")
+    log("sharded kernels vs plain (every collide form, stream and fused "
+        "pass, slab 2 / slab 4 / pencil 2x2), chunks vs one device: within "
+        "1e-12 (f64) / 1e-5 (f32); chunks = two-launch steps and overlapped "
+        "= serial, bit for bit")
     return worst
 
 
 def phase_sharded_golden():
     """4b: the golden values through a slab-2 mesh (phi_hx route per
-    shard)."""
+    shard: one chunk of 60 steps, a collide, 59 fused passes and a stream
+    per shard)."""
     import ekpnp_torch
     from ekpnp_torch.init import initialize
     from ekpnp_torch.kernels import fused_step as fs
@@ -1033,7 +1103,7 @@ def phase_sharded_golden():
     fs.reset_launches()
     state = make_sharded_multi_step(cfg, mesh, 60)(state)
     _want_launches(dict(fs.launches), "sharded golden run",
-                   **_route("collide_kernel.phi_hx.halo", 120,
+                   **_route("collide_kernel.phi_hx.halo", 120, 2,
                             "stream_bc_kernel.halo"))
     return _golden_devs(cfg, gather_state(mesh, state),
                         "golden through a slab-2 mesh (reference, f64, 60 "
@@ -1067,17 +1137,21 @@ def _sharded_chunks(cfg, mesh, state, steps, every, label, **kw):
 
 def time_sharded(cfg, mesh, state, bw):
     """Per form on shard 0: CUDA-event time, bound, and the plain
-    version's time and error (fails above TOL); on a slab the row product
-    on shard 0's RHS rows; the exchange (phi halo + post rows of every
-    shard), the distributed solve of the route, and the pencil's column
-    repair, all shards."""
+    version's time and error (fails above TOL) of the collide form, the
+    fused pass of the form (on the collide's set, with the exchanged edge
+    rows and a pencil's columns) beside the two launches it replaces (the
+    collide form and the stream), and the stream; on a slab the row product
+    on shard 0's RHS rows; the exchange (phi halo + the pass's edges of
+    every shard), the distributed solve of the route, and the pencil's
+    column repair, all shards."""
     import torch
 
     from ekpnp_torch.kernels import fused_step as fs
     from ekpnp_torch.ops.poisson import (poisson_phi_from_rhs,
                                          poisson_psi_hx_from_rhs)
     from ekpnp_torch.parallel.fft import hartley_x_local
-    from ekpnp_torch.parallel.halo import fix_x_columns, phi_halos, post_rows
+    from ekpnp_torch.parallel.halo import (fix_x_columns, phi_halos,
+                                           post_edges, post_rows)
     from ekpnp_torch.parallel.mesh import local_cfg
 
     cfg_l = local_cfg(cfg, mesh)
@@ -1085,7 +1159,7 @@ def time_sharded(cfg, mesh, state, bw):
                         for t in ts if t is not None)
     res = dict(kernel_ms={}, plain_ms={}, library_ms={}, bound_ms={},
                bound_by={}, bound_design_ms={}, rel_err={}, abs_err={},
-               other_ms={})
+               other_ms={}, two_launch_ms={})
     peak = PEAK[cfg.run.dtype]
 
     def bound(k, nbytes, ops):
@@ -1101,6 +1175,7 @@ def time_sharded(cfg, mesh, state, bw):
             raise SystemExit(f"chip_smoke: sharded {k} vs plain rel err "
                              f"{res['rel_err'][k]:.3e}")
 
+    passes = []
     for kname, kw in _shard_forms(cfg, mesh):
         ins, halos = _shard_inputs(cfg, mesh, state, kw)
         x, h = ins[0], halos[0]
@@ -1124,6 +1199,27 @@ def time_sharded(cfg, mesh, state, bw):
         check(kname, post, fs.collide_reference(cfg_l, *x, phi_halo=h, **kw))
         res["plain_ms"][kname] = _events_ms(
             lambda: fs.collide_reference(cfg_l, *x, phi_halo=h, **kw), 2)
+        # the fused pass of the form on shard 0's post-collision set: the
+        # bytes and operations of the collide's function and the edges
+        fp = fused_name(kname, mesh)
+        passes.append((fp, kname))
+        rows, cols = post_edges(cfg_l, mesh, [p[:4] for p in posts])[0]
+        pk = dict(rows=rows, cols=cols, phi_halo=h, **kw)
+        got = fs.fused_pass(cfg_l, *post[:4], x[4], **pk)
+        res["kernel_ms"][fp] = _events_ms(
+            lambda: fs.fused_pass(cfg_l, *post[:4], x[4], out=got[:4], **pk),
+            10)
+        edges = [t for e in (rows, cols) if e for pair in e if pair
+                 for t in pair]
+        bound(fp, nb(x) + nb(h) + nb(post) + nb(edges), ops)
+        if kname in res["bound_design_ms"]:
+            res["bound_design_ms"][fp] = (res["bound_design_ms"][kname]
+                                          + nb(edges) / bw * 1e3)
+        res["library_ms"][fp] = None
+        check(fp, got, fs.fused_pass_reference(cfg_l, *post[:4], x[4], **pk))
+        res["plain_ms"][fp] = _events_ms(
+            lambda: fs.fused_pass_reference(cfg_l, *post[:4], x[4], **pk), 2)
+        del got, rows, cols, edges
         if kname == "collide_kernel.halo":  # the row product, shard 0's RHS
             k = "hartley_rows_kernel"
             r = time_rows(post[4])
@@ -1158,17 +1254,22 @@ def time_sharded(cfg, mesh, state, bw):
         phi = state.phi
         res["other_ms"]["exchange"] = _events_ms(
             lambda: (phi_halos(mesh, phi) if phi is not None else None,
-                     post_rows(cfg_l, mesh, pops)), 10)
+                     post_edges(cfg_l, mesh, pops)), 10)
+        edges = post_edges(cfg_l, mesh, pops)
         res["exchange_bytes"] = (
             sum(nb(hh) for hh in halos if hh is not None)
-            + sum(nb(r) for rr in rows for r in rr if r))
+            + sum(nb([t]) for e in edges for part in e if part
+                  for pair in part if pair for t in pair))
         if mesh.pencil:
             outs = [out] + [fs.stream_bc(cfg_l, *p, rows=r)
                             for p, r in zip(pops[1:], rows[1:])]
             res["other_ms"]["column fix"] = _events_ms(
                 lambda: fix_x_columns(cfg_l, mesh, outs), 10)
             del outs
-        del posts, post, pops, rows, out
+        del posts, post, pops, rows, out, edges
+    for fp, kname in passes:  # the collide form and the stream it replaces
+        res["two_launch_ms"][fp] = (res["kernel_ms"][kname]
+                                    + res["kernel_ms"]["stream_bc_kernel.halo"])
     torch.cuda.empty_cache()
     return res
 
@@ -1181,8 +1282,12 @@ def _log_sharded(label, res, ms_step):
                if res["library_ms"].get(k) is not None else "")
         des = (f"; composed floor {res['bound_design_ms'][k]:.3f}"
                if k in res["bound_design_ms"] else "")
+        two = (f", the two launches it replaces "
+               f"{res['two_launch_ms'][k]:.3f} ms"
+               if k in res["two_launch_ms"] else "")
         log(f"  {label} {k} (shard 0): {v:.3f} ms (bound "
-            f"{res['bound_ms'][k]:.3f}, {res['bound_by'][k]}{des}){pl}{lib}")
+            f"{res['bound_ms'][k]:.3f}, {res['bound_by'][k]}{des}){pl}{lib}"
+            f"{two}")
     log(f"  {label} all shards: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in res["other_ms"].items())
         + f"; exchange {res.get('exchange_bytes', 0) / 1e6:.1f} MB; "
@@ -1191,7 +1296,9 @@ def _log_sharded(label, res, ms_step):
 
 def phase_sharded_main(bw, start):
     """5b, ek-pnp-thermal: slab 4 and pencil 2x2 from phase 5's start
-    state, held to the single-device run; the slab's other routes."""
+    state, one chunk of 20 steps each (per shard a collide, 19 fused passes
+    and a stream), held to the single-device run and, bit for bit, to 20
+    two-launch sharded steps; the slab's other routes."""
     import dataclasses
 
     import torch
@@ -1215,8 +1322,16 @@ def phase_sharded_main(bw, start):
         sh, chunks = _sharded_chunks(cfg, mesh, sh, steps, steps, label)
         runs = [dict(fs.launches)]
         _want_launches(runs[0], label, **_route(form, steps * 4,
+                                                len(chunks) * 4,
                                                 "stream_bc_kernel.halo"))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        two = _shard_steps(cfg, mesh, shard_state(cfg, mesh, s0), steps)
+        if not _shards_equal(sh, two):
+            raise SystemExit(f"chip_smoke: {label}: {steps} fused-chunk "
+                             f"steps differ from {steps} two-launch steps")
+        del two
+        log(f"{label}: {steps} fused-chunk steps vs {steps} two-launch "
+            f"sharded steps: max |d| 0")
         got = gather_state(mesh, sh)
         errs = {k: rel_err(getattr(got, k), getattr(ref, k))
                 for k in ("f", "h", "hn", "g", "phi")
@@ -1241,7 +1356,8 @@ def phase_sharded_main(bw, start):
                                         f"{label} {sub}", **kw)
                 runs.append(dict(fs.launches))
                 _want_launches(runs[-1], f"{label} {sub}",
-                               **_route(sform, 40, "stream_bc_kernel.halo"))
+                               **_route(sform, 40, len(c) * 4,
+                                        "stream_bc_kernel.halo"))
                 other[sub] = c[-1] * 1e3
         res = time_sharded(cfg, mesh, sh, bw)
         ms_step = chunks[-1] * 1e3
@@ -1251,7 +1367,8 @@ def phase_sharded_main(bw, start):
             f"peak {peak_gb:.2f} GB")
         out[mname] = dict(res, label=label, steps=steps, step_ms=ms_step,
                           other_route_ms=other, launches=runs,
-                          vs_single_device=errs, peak_gb=peak_gb,
+                          vs_single_device=errs, vs_two_launch=0.0,
+                          peak_gb=peak_gb,
                           mlups=cfg.grid.num_nodes / (chunks[-1] * 1e6))
         del sh
         torch.cuda.empty_cache()
@@ -1260,7 +1377,7 @@ def phase_sharded_main(bw, start):
 
 def phase_pod(bw):
     """5b, the pod preset: 50 steps on slab 4, then (re-sharded) 50 on
-    pencil 2x2."""
+    pencil 2x2, each in two chunks of 25."""
     import torch
 
     import ekpnp_torch
@@ -1287,7 +1404,7 @@ def phase_pod(bw):
         fs.reset_launches()
         sh, chunks = _sharded_chunks(cfg, mesh, sh, 50, 25, label)
         counts = dict(fs.launches)
-        _want_launches(counts, label, **_route(form, 200,
+        _want_launches(counts, label, **_route(form, 200, len(chunks) * 4,
                                                "stream_bc_kernel.halo"))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
@@ -1448,7 +1565,7 @@ def phase_anchor():
             raise SystemExit(f"chip_smoke: anchor run: step {step} {got}, "
                              f"want {want} (rel {devs[step]:.3e})")
     _want_launches(counts, "anchor run", **_route(
-        "collide_kernel.phi_hx", 999, chunks=_cli_chunks(1000, 500, 50)))
+        "collide_kernel.phi_hx", 999, _cli_chunks(1000, 500, 50)))
     mlups = float(text.split("speed:")[1].split("(")[0])
     log(f"(a) anchor: `run reference --steps 1000 --precision f64 "
         f"--checkpoint-full --set perturb_first_step=True`: rc 0 in "
@@ -1496,7 +1613,7 @@ def _cli_full(nsave):
         counts.update(json.loads(text.split("kernel launches:")[1]
                                  .splitlines()[0]))
         _want_launches(counts, label, **_route(
-            "collide_kernel.phi_hx", 299, chunks=_cli_chunks(300, nsave, 50)))
+            "collide_kernel.phi_hx", 299, _cli_chunks(300, nsave, 50)))
         res = dict(
             seconds=secs, zones=zones, launches=counts, free_gb=free_gb,
             mlups=float(text.split("speed:")[1].split("(")[0]),
@@ -1820,6 +1937,9 @@ def main():
             if k in cell["bound_design_ms"]:
                 row.update(bound_ms_design=cell["bound_design_ms"][k],
                            bound_ms_design_pod=pod[mname]["bound_design_ms"][k])
+            if k in cell["two_launch_ms"]:  # a shard's fused pass
+                row.update(two_launch_ms=cell["two_launch_ms"][k],
+                           two_launch_ms_pod=pod[mname]["two_launch_ms"][k])
         kernels.append(row)
     report["kernels"] = kernels
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as fh:

@@ -5,9 +5,11 @@
 // step of every active population: fluid f, ions h / hn, temperature g,
 // and the Poisson RHS, plain or transformed along x.
 //
-// The one-device time loop (kernels/step.py _chunk) cuts a chunk of n
-// steps at the stream: one collide_kernel, n - 1 fused_pass_kernel
-// launches, one stream_bc_kernel, a solve after each collide.
+// The time loop cuts a chunk of n steps at the stream: one collide_kernel,
+// n - 1 fused_pass_kernel launches, one stream_bc_kernel (on a shard
+// stream_bc_halo_kernel), a solve after each collide or pass; on one
+// device (kernels/step.py _chunk) and per shard of a mesh
+// (parallel/halo.py make_halo_multi_step).
 //
 //   collide_kernel    one thread per node (x fastest, so a warp reads
 //                     contiguous x for every direction):
@@ -23,7 +25,7 @@
 //                     (moving-wall term at the top).  It also writes the
 //                     Poisson RHS -kappa (c+ - c-) / eps for z = 1..NZ-2
 //                     from the pre-collision ion moments.  A chunk's first
-//                     launch; every step of a sharded loop.
+//                     launch.
 //   fused_pass_kernel one thread per node: the stream of step k-1 and the
 //                     collide of step k.  It pulls step k-1's post-collision
 //                     set into the node by stream_bc_kernel's rules (Pulled)
@@ -34,6 +36,7 @@
 //                     collide takes are the two-launch step's; every node
 //                     runs the same operations in the same order, so a
 //                     chunk equals its two-launch steps bit for bit.
+//   fused_pass_halo_kernel  the same pass on a shard (below).
 //   stream_bc_kernel  one thread per node: pull post[d, z-ez, y-ey, x-ex]
 //                     with periodic wrap in all three axes (the fluid's
 //                     z-wrap through the reflected wall planes is the
@@ -60,24 +63,37 @@
 // The sharded forms (the TPU kernel's halo=True, fused_step.py:240-245,
 // :516-520, and shard_x, :294-318; host side ekpnp_torch/parallel/halo.py) run
 // on one shard's local (Q, NZ, NYl, NXl) block, with the neighbours' edge
-// data in small halo buffers in place of the local wrap, collide and
-// stream every step:
-//   - collide_kernel reads phi at y = -1 and y = NYl from two rows (NZ, NXl)
-//     of the y-neighbours (decoded from psi_hx rows by hartley_rows_kernel
-//     on the phi_hx route), and a pencil shard's collide reads x = -1 and
-//     x = NXl from two columns (NZ, NYl) of the x-neighbours (PhiSrc; null
-//     halos wrap, so one collide_kernel serves one device and shards);
-//   - stream_bc_halo_kernel pulls across a y edge from the neighbour's
-//     POST-collision edge row, exchanged after the collide and holding only
-//     the directions that pull across that edge: 9 of 27 (D3Q27), 5 of 19,
-//     1 of 7, in direction order (PostSrc).  x wraps locally; on a pencil
-//     the host code repairs the two wrap columns afterwards (fix_x_columns).
+// data in small halo buffers in place of the local wrap; a chunk is a
+// collide, n - 1 passes and a stream per shard, as on one device:
+//   - collide_kernel and the pass read phi at y = -1 and y = NYl from two
+//     rows (NZ, NXl) of the y-neighbours (decoded from psi_hx rows by
+//     hartley_rows_kernel on the phi_hx route), and on a pencil shard at
+//     x = -1 and x = NXl from two columns (NZ, NYl) of the x-neighbours
+//     (PhiSrc; null halos wrap, so one collide_kernel serves one device and
+//     shards);
+//   - the shard pass (fused_pass_halo_kernel) pulls across a y
+//     edge from the neighbour's POST-collision edge row, exchanged after
+//     the collide or pass and holding only the directions that pull across
+//     that edge: 9 of 27 (D3Q27), 5 of 19, 1 of 7, in direction order
+//     (edge_slot).  On a slab x wraps locally.  On a pencil it pulls across
+//     an x edge from the x-neighbour's post-collision column (x_slot), all
+//     NZ planes (the ions' top plane under zerograd-top pulls from plane
+//     NZ-2); the host exchanges the columns first and cuts each row from
+//     the sender's block widened by the two columns it received, so a row
+//     is NXl + 2 wide and its end values are the diagonal shard's corners.
+//     A pulled value is collided in registers at once, so nothing repairs
+//     the columns after a pass: they must be right when pulled.  Its own
+//     kernel, the one-device pass's body with another source: the edge
+//     selects in the one-device pass would cost it (as they cost the
+//     one-device stream 8-12 %, PERF.md); interior nodes stage through
+//     PullSrc's tables, only edge nodes through the selects;
+//   - stream_bc_halo_kernel, a chunk's last launch, pulls across the y
+//     edges from the rows (PostSrc); x wraps locally and on a pencil the
+//     host repairs the two wrap columns afterwards (fix_x_columns).
 // This is not the TPU's data flow (pre-collision 8-row halo blocks, halo
-// rows collided again, DMA-aligned): the two-launch split lets the post
-// rows travel instead, while the solve runs.  The one-device stream keeps
-// its own kernel, where the shard's reads cost it time.  A fused pass on a
-// shard would pull across the y edges from the exchanged rows: a source
-// in place of PullSrc (see StateSrc / PullSrc / StagedSrc below).
+// rows collided again, DMA-aligned): post-collision rows and columns
+// travel instead, on a side stream while the solve runs.  The one-device
+// pass and stream keep their own instantiations.
 //
 // Bound: device-memory bytes.  A fused pass moves 872 B/node with every
 // field on D3Q27 in f32 (step k-1's post-collision set read, step k's
@@ -102,12 +118,12 @@
 // leave the 1e-5 tolerance of f32, and each output is summed over x in
 // order 0..NX-1 with explicit fused multiply-adds, as the plain version's
 // kernels were, so f64 stays at 0 / <= 1e-12).  A shard moves the same
-// bytes per node plus its halo: two phi rows (and columns) for the
-// collide, two post rows of 9 / 5 / 1 directions per field for the
-// stream.  The halo reads select a pointer and an index (PhiSrc, pull) and
-// the slot comes from a table (edge_slot): a first version with a branch
-// per read and a counting loop per slot had nvcc still compiling after 14
-// minutes; this one takes about one per element type.
+// bytes per node plus its halo: two phi rows (and columns), two post rows
+// of 9 / 5 / 1 directions per field (and on a pencil two columns).  The
+// halo reads select a pointer and an index (PhiSrc, ShardPulled, pull) and
+// the slot comes from a table (edge_slot, x_slot): a first version with a
+// branch per read and a counting loop per slot had nvcc still compiling
+// after 14 minutes.
 //
 // Plain C interface for ctypes; every entry point returns the
 // cudaGetLastError() of its launch (or -1 for an unsupported lattice pair,
@@ -211,6 +227,28 @@ __device__ __forceinline__ T ld(const T* __restrict__ p, int64_t i) {
   return __ldg(p + i);
 }
 
+// BYTES from gmem to smem, asynchronously; zeros where !ok (gmem is then
+// not read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = ok ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(gmem), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(s), "l"(gmem), "n"(BYTES), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
 template <int Q, typename T, typename V>
 __device__ __forceinline__ T moment0(const Params<T>& P, const V& v) {
   T m = T(0);
@@ -225,12 +263,16 @@ __device__ __forceinline__ T moment0(const Params<T>& P, const V& v) {
 // (node_macro, trt_field, collide_node) is the same for every source.
 //   StateSrc  (collide_kernel): the state itself, at the node.
 //   PullSrc   the previous step's post-collision set, streamed into the
-//             node as stream_bc_kernel streams it (fused_pass_kernel's
-//             plane-1 reads for the z=0 wall velocity).
-//   StagedSrc (fused_pass_kernel): the same values, copied by the thread
-//             into its shared-memory slots first.
-// A later source may pull across a shard's y edges from the neighbours'
-// post-collision rows (PostSrc) in place of PullSrc's wrap.
+//             node as stream_bc_kernel streams it (the one-device
+//             fused_pass_kernel's plane-1 reads for the z=0 wall velocity).
+//   ShardSrc  the same on a shard: across a y edge from the y-neighbours'
+//             exchanged post-collision rows, and on a pencil across an x
+//             edge from the x-neighbours' columns, in place of the wrap
+//             (fused_pass_halo_kernel's plane-1 reads).
+//   StagedSrc (fused_pass_kernel): the values a PullSrc view gives,
+//             copied by the thread into its shared-memory slots first;
+//             ShardStagedSrc (fused_pass_halo_kernel) the same for the
+//             values of PullSrc (interior nodes) or ShardSrc views.
 template <typename T>
 struct AtNode {
   const T* p;
@@ -277,6 +319,7 @@ struct Pulled {
   __device__ __forceinline__ T operator()(const Params<T>& P, int d) const {
     return fix(P, d, ld(p, src(d)));
   }
+  __device__ __forceinline__ const T* at(int d) const { return p + src(d); }
 };
 
 template <typename T>
@@ -305,6 +348,140 @@ struct PullSrc {
     v.xo[1] = x;
     v.xo[2] = x == 0 ? P.nx - 1 : x - 1;
     return v;
+  }
+};
+
+// Slot of direction d among the directions of its y-component (ey = +1 or
+// ey = -1) in direction order: its row in a PostSrc lo / hi buffer.  An
+// opposite pair (d, d+1) shares its slot; directions with ey = 0 have
+// none (0 here, never read).  The same for every Q: D3Q19 and D3Q7 are
+// prefixes of the D3Q27 table.  A table, like dir_e: counting the earlier
+// directions in a loop made every unrolled read a nested loop.
+__device__ __forceinline__ int edge_slot(int d) {
+  const int tab[27] = {0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 2, 2, 3,
+                       3, 0, 0, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8};
+  return tab[d];
+}
+
+// The same along x: the slot of d among the directions with its ex (+1 or
+// -1), its row in a pencil shard's x-halo column buffer.
+__device__ __forceinline__ int x_slot(int d) {
+  const int tab[27] = {0, 0, 0, 0, 0, 0, 0, 1, 1, 2, 2, 0, 0, 3,
+                       3, 4, 4, 0, 0, 5, 5, 6, 6, 7, 7, 8, 8};
+  return tab[d];
+}
+
+// One field's post-collision set on a shard and the neighbours' edge data
+// its pulls read across the shard's edges, each (n, NZ, ...) holding only
+// the n directions that pull across that edge, in direction order (slots
+// edge_slot / x_slot):
+//   lo / hi    rows y = -1 / y = NY (the directions with ey = +1 / -1) of
+//              the y-neighbours, (n, NZ, RW);
+//   xlo / xhi  on a pencil, columns x = -1 / x = NX (ex = +1 / -1) of the
+//              x-neighbours, (n, NZ, NY); null on a slab, where x wraps.
+// A pencil's rows are RW = NX + 2 wide, columns -1 .. NX: the sender built
+// them from its block widened by the two columns it had received, so the
+// row carries the diagonal shard's corner values; a slab's are NX wide.
+template <typename T>
+struct ShardEdges {
+  const T* post;
+  const T* lo;
+  const T* hi;
+  const T* xlo;
+  const T* xhi;
+};
+
+// Direction d of one field at one shard node after the stream: Pulled's
+// rules, with the source row y - ey in -1 .. NY and the column x - ex in
+// -1 .. NX (pencil) or wrapped (slab).  A read outside the block takes the
+// row buffer if its row is out (corners included), else the column
+// buffer: selects of the pointer and the index, as PhiSrc's, no branch.
+// The three candidate indices are sums of per-view tables, as Pulled's
+// (the two buffers' in 32 bits: they hold a few rows).
+template <typename T>
+struct ShardPulled {
+  ShardEdges<T> e;
+  int64_t N, idx;
+  int64_t zo[3];        // in post: offset of the source plane, by ez + 1
+  int yo[3], xo[3];     // of the source row (y NX), column, by ey + 1, ex + 1
+  int rz[3], rx[3];     // in a row buffer: plane (z RW), column (x + xoff)
+  int cz[3], cy[3];     // in a column buffer: plane (z NY), row (y)
+  int rs, cs;           // a slot's stride in the row / column buffers
+  bool ylo, yhi;        // row -1 / NY is a halo row (y == 0 / y == NY-1)
+  bool xlo, xhi;        // column -1 / NX is a halo column (pencil)
+  bool wall;            // a scalar's wall node: reflected at the node
+  int k, s;             // scalar field (0 h, 1 hn, 2 g), wall (0 z=0, 1 top)
+  __device__ __forceinline__ const T* at(int d) const {
+    const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
+    const bool yout = ey > 0 ? ylo : (ey < 0 ? yhi : false);
+    const bool xout = ex > 0 ? xlo : (ex < 0 ? xhi : false);
+    const int64_t in = d * N + zo[ez + 1] + yo[ey + 1] + xo[ex + 1];
+    const int row = edge_slot(d) * rs + rz[ez + 1] + rx[ex + 1];
+    const int col = x_slot(d) * cs + cz[ez + 1] + cy[ey + 1];
+    const T* p = yout ? (ey > 0 ? e.lo : e.hi)
+                      : (xout ? (ex > 0 ? e.xlo : e.xhi) : e.post);
+    const int64_t i = yout ? (int64_t)row : (xout ? (int64_t)col : in);
+    return wall ? e.post + (dir_opp(d) * N + idx) : p + i;
+  }
+  // the wall rule on the value read at at(d)
+  __device__ __forceinline__ T fix(const Params<T>& P, int d, T v) const {
+    return wall ? (P.wneg[k] != 0 ? -v : v) + P.wadd[k][s][d] : v;
+  }
+  __device__ __forceinline__ T operator()(const Params<T>& P, int d) const {
+    return fix(P, d, __ldg(at(d)));
+  }
+};
+
+// A shard pass's source: the four fields' ShardEdges.
+template <typename T>
+struct ShardSrc {
+  ShardEdges<T> e[4];
+  __device__ __forceinline__ ShardPulled<T> view(const Params<T>& P, int k,
+                                                 int z, int y, int x,
+                                                 int64_t N) const {
+    const int64_t plane = (int64_t)P.ny * P.nx;
+    const bool top = z == P.nz - 1;
+    const bool zg = (k == 1 || k == 2) && P.cbc == 2;
+    const bool pencil = e[k].xlo != nullptr;
+    const int rw = pencil ? P.nx + 2 : P.nx, xoff = pencil ? 1 : 0;
+    ShardPulled<T> v;
+    v.e = e[k];
+    v.N = N;
+    v.idx = z * plane + (int64_t)y * P.nx + x;
+    v.wall = k > 0 && (z == 0 || top) && !(zg && top);
+    v.k = k > 0 ? k - 1 : 0;
+    v.s = z == 0 ? 0 : 1;
+    const int raw[3] = {top ? 0 : z + 1, z, z == 0 ? P.nz - 1 : z - 1};
+    const int xs[3] = {!pencil && x == P.nx - 1 ? 0 : x + 1, x,
+                       !pencil && x == 0 ? P.nx - 1 : x - 1};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int zs = zg && (top || raw[i] == P.nz - 1) ? P.nz - 2 : raw[i];
+      v.zo[i] = zs * plane;
+      v.yo[i] = (y + 1 - i) * P.nx;
+      v.xo[i] = xs[i];
+      v.rz[i] = zs * rw;
+      v.rx[i] = xs[i] + xoff;
+      v.cz[i] = zs * P.ny;
+      v.cy[i] = y + 1 - i;
+    }
+    v.rs = P.nz * rw;
+    v.cs = P.nz * P.ny;
+    v.ylo = y == 0;
+    v.yhi = y == P.ny - 1;
+    v.xlo = pencil && x == 0;
+    v.xhi = pencil && x == P.nx - 1;
+    return v;
+  }
+  // a node that pulls nothing across an edge (PullSrc's tables serve it:
+  // its y wrap is never taken there, and x wraps on a slab)
+  __device__ __forceinline__ bool interior(const Params<T>& P, int y,
+                                           int x) const {
+    return y > 0 && y < P.ny - 1
+           && (e[0].xlo == nullptr || (x > 0 && x < P.nx - 1));
+  }
+  __device__ __forceinline__ PullSrc<T> inner() const {
+    return PullSrc<T>{{e[0].post, e[1].post, e[2].post, e[3].post}};
   }
 };
 
@@ -337,6 +514,45 @@ struct StagedSrc {
                                             int y, int x, int64_t N) const {
     return Staged<T>{pull.view(P, k, z, y, x, N),
                      slots + slot_base<T, QF, QS>(P, k) * kThreads};
+  }
+};
+
+// A shard pass's staged view: its slots and the wall rule alone (the
+// pull tables are spent once the values are staged).
+struct WallRule {
+  bool wall;  // a scalar's wall node: reflected at the node
+  int k, s;   // scalar field (0 h, 1 hn, 2 g), wall (0 z=0, 1 top)
+  template <typename T>
+  __device__ __forceinline__ WallRule(const Params<T>& P, int k_, int z) {
+    const bool top = z == P.nz - 1;
+    const bool zg = (k_ == 1 || k_ == 2) && P.cbc == 2;
+    wall = k_ > 0 && (z == 0 || top) && !(zg && top);
+    k = k_ > 0 ? k_ - 1 : 0;
+    s = z == 0 ? 0 : 1;
+  }
+  template <typename T>
+  __device__ __forceinline__ T fix(const Params<T>& P, int d, T v) const {
+    return wall ? (P.wneg[k] != 0 ? -v : v) + P.wadd[k][s][d] : v;
+  }
+};
+
+template <typename T>
+struct ShardStaged {
+  WallRule w;
+  T* s;
+  __device__ __forceinline__ T operator()(const Params<T>& P, int d) const {
+    return w.fix(P, d, s[d * kThreads]);
+  }
+};
+
+template <typename T, int QF, int QS>
+struct ShardStagedSrc {
+  T* slots;  // this thread's first slot
+  __device__ __forceinline__ ShardStaged<T> view(const Params<T>& P, int k,
+                                                 int z, int, int,
+                                                 int64_t) const {
+    return ShardStaged<T>{WallRule(P, k, z),
+                          slots + slot_base<T, QF, QS>(P, k) * kThreads};
   }
 };
 
@@ -684,28 +900,6 @@ __device__ __forceinline__ void st_vec(double* p, const double* v) {
   *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
-// BYTES from gmem to smem, asynchronously; zeros where !ok (gmem is then
-// not read)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
-                                         bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = ok ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(gmem), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                 :: "r"(s), "l"(gmem), "n"(BYTES), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 // lift: add volt + (volt2 - volt) z / (nz - 1), z = r / rows_per_z, folded
 // in double and cast to T, as the plain version's lifting profile.
 template <typename T, bool VEC>
@@ -839,18 +1033,6 @@ struct PostRows {
   const T* lo[4];
   const T* hi[4];
 };
-
-// Slot of direction d among the directions of its y-component (ey = +1 or
-// ey = -1) in direction order: its row in a PostSrc lo / hi buffer.  An
-// opposite pair (d, d+1) shares its slot; directions with ey = 0 have
-// none (0 here, never read).  The same for every Q: D3Q19 and D3Q7 are
-// prefixes of the D3Q27 table.  A table, like dir_e: counting the earlier
-// directions in a loop made every unrolled read a nested loop.
-__device__ __forceinline__ int edge_slot(int d) {
-  const int tab[27] = {0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 2, 2, 3,
-                       3, 0, 0, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8};
-  return tab[d];
-}
 
 // A scalar field's wall node (z = 0 or NZ-1, but not the zerograd top):
 // the post-collision populations reflected at the same node.
@@ -1056,6 +1238,71 @@ __global__ void __launch_bounds__(kThreads) fused_pass_kernel(
   if (P.ek && z >= 1 && z <= P.nz - 2) rhs[idx - plane] = r;
 }
 
+// Copy the Q values a pull view (Pulled, ShardPulled) reads into the
+// slots from s on (cp.async).
+template <int Q, typename T, typename V>
+__device__ __forceinline__ void stage_view(const V& v, T* s) {
+#pragma unroll
+  for (int d = 0; d < Q; ++d)
+    cp_async<(int)sizeof(T)>(s + d * kThreads, v.at(d), true);
+}
+
+// Stage every active field of node (z, y, x), pulled through `src`
+// (PullSrc or ShardSrc), into the thread's slots.
+template <int QF, int QS, typename T, typename Src>
+__device__ __forceinline__ void stage_fields(const Params<T>& P,
+                                             const Src& src, int z, int y,
+                                             int x, int64_t N, T* slots) {
+  auto at = [&](int k) { return slots + slot_base<T, QF, QS>(P, k) * kThreads; };
+  stage_view<QF>(src.view(P, 0, z, y, x, N), at(0));
+  if (P.ek) {
+    stage_view<QS>(src.view(P, 1, z, y, x, N), at(1));
+    if (P.nspec == 2) stage_view<QS>(src.view(P, 2, z, y, x, N), at(2));
+  }
+  if (P.thermal) stage_view<QS>(src.view(P, 3, z, y, x, N), at(3));
+}
+
+// The pass on a shard (fused_pass_kernel's .halo / .shard_x forms): the
+// same pass, pulling step k-1's post-collision set through ShardSrc, with
+// the shard's phi halo.  A node off the shard's edges stages through
+// PullSrc's tables, an edge node through ShardSrc's selects (a branch per
+// thread: on a pencil each row's first and last warp hold one x-edge
+// node, and a whole warp through the selects cost more than the two
+// sequences; PERF.md).  The z=0 thread's plane-1 reads go through
+// ShardSrc.  `post`, its edge buffers and the outputs must not alias.
+// f32: at least 4 blocks an SM, the most the all-D3Q27 pass's 55 KB of
+// shared memory a block allows.  The edge selects and ShardSrc's plane-1
+// reads took the kernel past 128 registers (3 blocks); capped at 128 it
+// spills up to 140 B a thread and still runs faster, the pencil's most
+// (PERF.md).  f64 asks for the 2 blocks its shared memory allows.
+template <typename T, int QF, int QS>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 2)
+fused_pass_halo_kernel(
+    const Params<T> P, const ShardSrc<T> post, const T* __restrict__ phi_,
+    const PhiHalo<T> halo, T* __restrict__ pf, T* __restrict__ ph,
+    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const int64_t N = plane * P.nz;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= N) return;
+  const int x = (int)(idx % P.nx);
+  const int y = (int)((idx / P.nx) % P.ny);
+  const int z = (int)(idx / plane);
+  T* const slots = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  if (post.interior(P, y, x))
+    stage_fields<QF, QS>(P, post.inner(), z, y, x, N, slots);
+  else
+    stage_fields<QF, QS>(P, post, z, y, x, N, slots);
+  cp_async_commit();
+  cp_async_wait<0>();  // the thread reads only its own slots
+  const ShardStagedSrc<T, QF, QS> src{slots};
+  const PhiSrc<T> phi(phi_, halo, P.ny, P.nx);
+  const T r = collide_node<T, QF, QS>(P, src, post, phi, pf, ph, phn, pg, z,
+                                      y, x, N, idx);
+  if (P.ek && z >= 1 && z <= P.nz - 2) rhs[idx - plane] = r;
+}
+
 inline unsigned blocks_for(const HostInts& I) {
   const int64_t n = (int64_t)I.nx * I.ny * I.nz;
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -1112,6 +1359,31 @@ int launch_fused_pass(const HostInts& I, const HostConsts& C,
   kern<<<blocks_for(I), kThreads, smem, s>>>(
       make_params<T>(I, C), src, (const T*)phi, (T*)pf, (T*)ph, (T*)phn,
       (T*)pg, (T*)rhs);
+  return (int)cudaGetLastError();
+}
+
+// A shard's pass: post {post, lo, hi, xlo, xhi} per field (ShardEdges;
+// xlo, xhi null on a slab), phi {phi, ylo, yhi, xlo, xhi}.
+template <typename T, int QF, int QS>
+int launch_fused_pass_halo(const HostInts& I, const HostConsts& C,
+                           const void* const* post, const void* const* phi,
+                           void* pf, void* ph, void* phn, void* pg, void* rhs,
+                           cudaStream_t s) {
+  ShardSrc<T> src;
+  for (int k = 0; k < 4; ++k)
+    src.e[k] = ShardEdges<T>{(const T*)post[5 * k], (const T*)post[5 * k + 1],
+                             (const T*)post[5 * k + 2],
+                             (const T*)post[5 * k + 3],
+                             (const T*)post[5 * k + 4]};
+  const int slots = QF + (I.ek ? I.nspec * QS : 0) + (I.thermal ? QS : 0);
+  const size_t smem = (size_t)slots * kThreads * sizeof(T);
+  auto kern = fused_pass_halo_kernel<T, QF, QS>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<blocks_for(I), kThreads, smem, s>>>(
+      make_params<T>(I, C), src, (const T*)phi[0], make_halo<T>(phi),
+      (T*)pf, (T*)ph, (T*)phn, (T*)pg, (T*)rhs);
   return (int)cudaGetLastError();
 }
 
@@ -1185,6 +1457,20 @@ int fused_pass_any(const HostInts& I, const HostConsts& C,
   if (I.qf == QF_ && I.qs == QS_)                                          \
     return launch_fused_pass<T, QF_, QS_>(I, C, post, phi, pf, ph, phn,    \
                                           pg, rhs, s);
+  EKPNP_LATTICE_PAIRS(EKPNP_CASE)
+#undef EKPNP_CASE
+  return -1;
+}
+
+template <typename T>
+int fused_pass_halo_any(const HostInts& I, const HostConsts& C,
+                        const void* const* post, const void* const* phi,
+                        void* pf, void* ph, void* phn, void* pg, void* rhs,
+                        cudaStream_t s) {
+#define EKPNP_CASE(QF_, QS_)                                               \
+  if (I.qf == QF_ && I.qs == QS_)                                          \
+    return launch_fused_pass_halo<T, QF_, QS_>(I, C, post, phi, pf, ph,    \
+                                               phn, pg, rhs, s);
   EKPNP_LATTICE_PAIRS(EKPNP_CASE)
 #undef EKPNP_CASE
   return -1;
@@ -1270,6 +1556,20 @@ int ekpnp_fused_pass(int is_f64, const int* ints, const double* consts,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_f64 != kIsF64) return -3;
   return fused_pass_any<Real>(I, C, post, phi, pf, ph, phn, pg, rhs, s);
+}
+
+// A shard's pass: post {post, lo, hi, xlo, xhi} for f, h, hn, g in turn
+// (ShardEdges; all null for an inactive field, xlo / xhi null on a slab);
+// phi {phi, ylo, yhi, xlo, xhi} as ekpnp_collide takes it.
+int ekpnp_fused_pass_shard(int is_f64, const int* ints, const double* consts,
+                           const void* const* post, const void* const* phi,
+                           void* pf, void* ph, void* phn, void* pg,
+                           void* rhs, void* stream) {
+  const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
+  const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (is_f64 != kIsF64) return -3;
+  return fused_pass_halo_any<Real>(I, C, post, phi, pf, ph, phn, pg, rhs, s);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ stream, scalar wall BCs, E from phi, and the Poisson RHS), with the RHS
 plain, or already transformed along x (`hartley_x`), and phi taken plain
 or as psi_hx and decoded on the card (`phi_hx`); on one device, or on
 one shard of a mesh (`halo`: y-slab; `shard_x`: pencil), where the
-neighbours' edge data come in as halo tensors (`PhiHalo` for the collide,
-post-collision `rows` for the stream; parallel/halo.py exchanges them).
+neighbours' edge data come in as halo tensors (`PhiHalo` for phi,
+post-collision `rows` for the pass and the stream, and on a pencil `cols`
+for the pass; parallel/halo.py exchanges them).
 
 Design (csrc/fused_step.cu), x fastest, one thread per node.  The
 one-device time loop (kernels/step.py `_chunk`) runs a chunk of n steps
@@ -20,8 +21,11 @@ then the collide of this step on those values: one pass, 872 B per node
 all-D3Q27 in f32, 392 B with D3Q7 scalars, against the 1736 / 776 B of a
 collide + stream pair) and one `stream_bc` (`stream_bc_kernel`: pull
 stream and scalar wall BCs), each collide or pass followed by the solve.
-A one-step call (`fused_step`) and a shard's step are a collide and a
-stream.  The order of every operation is the plain step's
+A shard's chunk (parallel/halo.py `make_halo_multi_step`) is cut the same
+way, its pass pulling across the shard's edges from the exchanged rows
+and columns (`fused_pass_halo_kernel`); a one-step
+call (`fused_step`) and a shard's two-launch step (`step_halo`) are a
+collide and a stream.  The order of every operation is the plain step's
 (ekpnp_torch/step.py), so the chunk equals its two-launch steps bit for
 bit.  The x-Hartley forms are composed here from the collide (or the
 pass) and the row product `hartley_rows_kernel` (`hartley_rows`: rows @
@@ -78,14 +82,17 @@ from ..step import PostCollision, collide_and_reflect, stream_and_bcs
 # collide launch of the same forms on a y-slab shard (.halo), the
 # plain-RHS collide on a pencil shard (.shard_x), and the shards' stream
 # launch (.halo: stream_bc_halo_kernel; on a pencil the wrap-column repair
-# of parallel/halo.py follows)
+# of parallel/halo.py follows); then the shards' fused pass in the same
+# forms (.halo, .shard_x: fused_pass_halo_kernel)
 KERNELS = ("collide_kernel", "collide_kernel.hartley_x",
            "collide_kernel.phi_hx", "fused_pass_kernel",
            "fused_pass_kernel.hartley_x", "fused_pass_kernel.phi_hx",
            "hartley_rows_kernel", "stream_bc_kernel",
            "collide_kernel.halo", "collide_kernel.hartley_x.halo",
            "collide_kernel.phi_hx.halo", "collide_kernel.shard_x",
-           "stream_bc_kernel.halo")
+           "stream_bc_kernel.halo", "fused_pass_kernel.halo",
+           "fused_pass_kernel.hartley_x.halo",
+           "fused_pass_kernel.phi_hx.halo", "fused_pass_kernel.shard_x")
 _FORMS = {(False, False): "", (True, False): ".hartley_x",
           (True, True): ".phi_hx"}
 # launches of each kernel form on the card, counted where it is launched
@@ -133,6 +140,15 @@ def collide_form(hartley_x: bool, phi_hx: bool,
     return name + (".shard_x" if phi_halo.xlo is not None else ".halo")
 
 
+def pass_form(hartley_x: bool, phi_hx: bool, rows=None, cols=None) -> str:
+    """The launch-count name of a fused pass: on a shard (edge `rows`) the
+    .halo form, on a pencil shard (also `cols`) the .shard_x form."""
+    name = "fused_pass_kernel" + _FORMS[(hartley_x, phi_hx)]
+    if rows is None:
+        return name
+    return name + (".shard_x" if cols is not None else ".halo")
+
+
 def edge_dirs(lat, sign: int, axis: int = 1):
     """The directions of `lat` whose component along `axis` (0 = x, 1 = y)
     is `sign`, in direction order.  Along y: those that pull across the
@@ -140,6 +156,18 @@ def edge_dirs(lat, sign: int, axis: int = 1):
     stream takes from its neighbours (the kernel's edge_slot table follows
     this order)."""
     return [d for d in range(lat.Q) if int(lat.E[d][axis]) == sign]
+
+
+def _pad_edges(lat, post, lo, hi, axis):
+    """post (Q, NZ, NY, NX) with the neighbours' edge values as planes -1
+    and N along `axis` (2: y, 3: x), the directions `edge_dirs(lat, +1 /
+    -1, 3 - axis)` taken from lo / hi (n, NZ, the other extent), the other
+    directions zero there (nothing reads them)."""
+    shape = post.shape[:axis] + post.shape[axis + 1:]
+    edge = lambda rows, sign: post.new_zeros(shape).index_copy_(
+        0, torch.tensor(edge_dirs(lat, sign, 3 - axis), device=post.device),
+        rows).unsqueeze(axis)
+    return torch.cat([edge(lo, 1), post, edge(hi, -1)], dim=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -234,9 +262,11 @@ def _load():
         lib.ekpnp_hartley_rows.restype = ci
         lib.ekpnp_stream_bc.argtypes = [ci, vp, vp] + [vp] * 5 + [vp]
         lib.ekpnp_stream_bc.restype = ci
-        # is_f64, ints, consts, post (array), phi, out x 4, rhs, stream
-        lib.ekpnp_fused_pass.argtypes = [ci, vp, vp, vp, vp] + [vp] * 6
-        lib.ekpnp_fused_pass.restype = ci
+        # is_f64, ints, consts, post (array), phi, out x 4, rhs, stream;
+        # the shard's: {post, lo, hi, xlo, xhi} x 4 and phi + halo (arrays)
+        for fn in (lib.ekpnp_fused_pass, lib.ekpnp_fused_pass_shard):
+            fn.argtypes = [ci, vp, vp, vp, vp] + [vp] * 6
+            fn.restype = ci
         n_i, n_c = ctypes.c_int(), ctypes.c_int()
         lib.ekpnp_abi(ctypes.byref(n_i), ctypes.byref(n_c))
         if (n_i.value, n_c.value) != want:
@@ -383,30 +413,30 @@ def collide_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None, *,
     return post.f, post.h, post.hn, post.g, rhs
 
 
-def _pad_rows(lat, post, lo, hi):
-    """post (Q, NZ, NY, NX) with the neighbours' rows as rows -1 and NY:
-    (Q, NZ, NY+2, NX), the directions that do not pull across an edge
-    zero there (nothing reads them)."""
-    q, nz, _, nx = post.shape
-    edge = lambda rows, ey: post.new_zeros((q, nz, nx)).index_copy_(
-        0, torch.tensor(edge_dirs(lat, ey), device=post.device), rows)
-    return torch.cat([edge(lo, 1)[:, :, None], post, edge(hi, -1)[:, :, None]],
-                     dim=2)
-
-
 def stream_bc_reference(cfg: Config, pf, ph=None, phn=None, pg=None,
-                        rows=None):
+                        rows=None, cols=None):
     """Plain version of stream_bc_kernel: (f1, h1, hn1, g1).  rows: on a
     shard, the (lo, hi) post-collision edge rows of each field (f, h, hn,
-    g; see stream_bc); the stream runs on the padded block, whose inner
-    rows need no wrap, and keeps them."""
+    g; see stream_bc); cols: on a pencil shard, the (xlo, xhi) edge columns
+    of each field, the rows then widened to columns -1 .. NX (see
+    fused_pass).  The stream runs on the block padded with them (x first,
+    then y), whose inner nodes need no wrap, and keeps the inner nodes."""
     post = PostCollision(f=pf, h=ph, hn=phn, g=pg)
     if rows is None:
         return stream_and_bcs(cfg, post)
     lats = (cfg.lattice,) + (cfg.scalar_lat,) * 3
-    padded = PostCollision(*(None if a is None else _pad_rows(lat, a, *r)
-                             for a, lat, r in zip(post, lats, rows)))
-    return tuple(None if a is None else a[:, :, 1:-1].contiguous()
+    cols = cols if cols is not None else (None,) * 4
+
+    def pad(a, lat, r, c):
+        if c is not None:
+            a = _pad_edges(lat, a, *c, axis=3)
+        return _pad_edges(lat, a, *r, axis=2)
+
+    padded = PostCollision(*(None if a is None else pad(a, lat, r, c)
+                             for a, lat, r, c in zip(post, lats, rows, cols)))
+    crop = (slice(None), slice(None), slice(1, -1),
+            slice(1, -1) if cols[0] is not None else slice(None))
+    return tuple(None if a is None else a[crop].contiguous()
                  for a in stream_and_bcs(cfg, padded))
 
 
@@ -423,13 +453,16 @@ def fused_step_reference(cfg: Config, f, h=None, hn=None, g=None, phi=None,
 
 def fused_pass_reference(cfg: Config, pf, ph=None, phn=None, pg=None,
                          phi=None, *, hartley_x: Optional[bool] = None,
-                         phi_hx: bool = False):
+                         phi_hx: bool = False, rows=None, cols=None,
+                         phi_halo: Optional[PhiHalo] = None):
     """Plain version of the fused pass: `stream_bc_reference` of one step's
-    post-collision set, then `collide_reference` of the next step (with
-    phi, or psi_hx for phi_hx): (post_f, post_h, post_hn, post_g, rhs)."""
-    f, h, hn, g = stream_bc_reference(cfg, pf, ph, phn, pg)
+    post-collision set (on a shard with its edge `rows` and `cols`), then
+    `collide_reference` of the next step (with phi, or psi_hx for phi_hx,
+    and the shard's `phi_halo`): (post_f, post_h, post_hn, post_g, rhs)."""
+    f, h, hn, g = stream_bc_reference(cfg, pf, ph, phn, pg, rows=rows,
+                                      cols=cols)
     return collide_reference(cfg, f, h, hn, g, phi, hartley_x=hartley_x,
-                             phi_hx=phi_hx)
+                             phi_hx=phi_hx, phi_halo=phi_halo)
 
 
 # ---------------------------------------------------------------------------
@@ -503,22 +536,31 @@ def _check_phi_halo(cfg: Config, halo: Optional[PhiHalo], hartley_x: bool,
             _check_tensor(name, getattr(halo, name), (nz, ny), device, dtype)
 
 
-def _check_rows(cfg: Config, rows, pops, device, dtype):
-    """A shard's post-collision edge rows: (lo, hi) per active field, of
-    shape (directions with ey = +1 / -1, NZ, NX)."""
+def _check_rows(cfg: Config, rows, pops, device, dtype, cols=None):
+    """A shard's post-collision edge data: rows (lo, hi) per active field,
+    of shape (directions with ey = +1 / -1, NZ, NX), or on a pencil
+    (`cols` given) NX + 2 wide, with columns (xlo, xhi) per active field,
+    (directions with ex = +1 / -1, NZ, NY)."""
     if rows is None:
+        if cols is not None:
+            raise ValueError("fused_step: x columns without y rows")
         return
-    nz, _, nx = cfg.grid.shape
+    nz, ny, nx = cfg.grid.shape
     lats = (cfg.lattice,) + (cfg.scalar_lat,) * 3
-    for name, a, lat, r in zip(("f", "h", "hn", "g"), pops, lats, rows):
-        if (a is None) != (r is None):
-            raise ValueError(f"fused_step: rows of {name!r} do not match "
-                             f"its field")
-        if a is None:
-            continue
-        for side, t, ey in (("lo", r[0], 1), ("hi", r[1], -1)):
-            _check_tensor(f"{name} {side} row", t,
-                          (len(edge_dirs(lat, ey)), nz, nx), device, dtype)
+    edges = [("row", rows, 1, nx + (2 if cols is not None else 0))]
+    if cols is not None:
+        edges.append(("column", cols, 0, ny))
+    for kind, pairs, axis, width in edges:
+        for name, a, lat, r in zip(("f", "h", "hn", "g"), pops, lats, pairs):
+            if (a is None) != (r is None):
+                raise ValueError(f"fused_step: {kind}s of {name!r} do not "
+                                 f"match its field")
+            if a is None:
+                continue
+            for side, t, sign in (("lo", r[0], 1), ("hi", r[1], -1)):
+                _check_tensor(f"{name} {side} {kind}", t,
+                              (len(edge_dirs(lat, sign, axis)), nz, width),
+                              device, dtype)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -617,6 +659,17 @@ def hartley_rows(a, *, lift: Optional[Config] = None):
     return out
 
 
+def _decode(cfg: Config, psi, psi_halo: Optional[PhiHalo]):
+    """phi and its halo rows from psi_hx and a slab shard's psi halo rows
+    (`hartley_rows` with the lifting profile): the phi_hx forms' first
+    launches."""
+    phi = hartley_rows(psi, lift=cfg)
+    if psi_halo is not None:
+        psi_halo = psi_halo._replace(ylo=hartley_rows(psi_halo.ylo, lift=cfg),
+                                     yhi=hartley_rows(psi_halo.yhi, lift=cfg))
+    return phi, psi_halo
+
+
 def _collide_plain_rhs(cfg: Config, name: str, f, h, hn, g, phi, post,
                        phi_halo):
     """The collide launch with the plain RHS (collide_kernel, counted as
@@ -655,11 +708,7 @@ def collide(cfg: Config, f, h=None, hn=None, g=None, phi=None, post=None, *,
     _check(cfg, dict(f=f, h=h, hn=hn, g=g, phi=phi), f.device, f.dtype)
     name = collide_form(hartley_x, phi_hx, phi_halo)
     if phi_hx:
-        phi = hartley_rows(phi, lift=cfg)
-        if phi_halo is not None:
-            phi_halo = phi_halo._replace(
-                ylo=hartley_rows(phi_halo.ylo, lift=cfg),
-                yhi=hartley_rows(phi_halo.yhi, lift=cfg))
+        phi, phi_halo = _decode(cfg, phi, phi_halo)
     *pops, rhs = _collide_plain_rhs(cfg, name, f, h, hn, g, phi, post,
                                     phi_halo)
     if hartley_x:
@@ -697,45 +746,79 @@ def stream_bc(cfg: Config, pf, ph=None, phn=None, pg=None, out=None,
 
 
 def _fused_pass_plain_rhs(cfg: Config, name: str, pf, ph, phn, pg, phi,
-                          out):
+                          out, rows=None, cols=None, phi_halo=None):
     """The fused pass with the plain RHS (fused_pass_kernel, counted as
-    `name`), or its plain version for CPU tensors."""
+    `name`; on a shard fused_pass_halo_kernel), or its plain version
+    for CPU tensors."""
     if pf.device.type == "cpu":
         return fused_pass_reference(cfg, pf, ph, phn, pg, phi,
-                                    hartley_x=False)
+                                    hartley_x=False, rows=rows, cols=cols,
+                                    phi_halo=phi_halo)
     lib, ints, consts, is_f64, stream = _prep(
         cfg, dict(f=pf, h=ph, hn=phn, g=pg, phi=phi), pf)
     out = out if out is not None else _empty_like_fields(cfg, pf)
-    _check_apart(out, (pf, ph, phn, pg))
+    pops = (pf, ph, phn, pg)
+    none2 = (None, None)
+    edges = [t for pair in (*(rows or ()), *(cols or ())) for t in pair or ()]
+    _check_apart(out, pops + tuple(edges))
     rhs = (torch.empty((cfg.grid.nz - 2,) + cfg.grid.shape[1:],
                        dtype=pf.dtype, device=pf.device)
            if cfg.physics.enable_ek else None)
     with torch.cuda.device(pf.device):
-        _launch(lib.ekpnp_fused_pass, name, is_f64, ints.ctypes.data,
-                consts.ctypes.data, _ptrs(pf, ph, phn, pg),
-                _ptr(phi), *map(_ptr, out), _ptr(rhs), stream)
+        if rows is None:
+            _launch(lib.ekpnp_fused_pass, name, is_f64, ints.ctypes.data,
+                    consts.ctypes.data, _ptrs(*pops), _ptr(phi),
+                    *map(_ptr, out), _ptr(rhs), stream)
+        else:
+            srcs = [t for a, r, c in zip(pops, rows, cols or (None,) * 4)
+                    for t in (a, *(r or none2), *(c or none2))]
+            halo = phi_halo if phi_halo is not None else PhiHalo(None, None)
+            _launch(lib.ekpnp_fused_pass_shard, name, is_f64,
+                    ints.ctypes.data, consts.ctypes.data, _ptrs(*srcs),
+                    _ptrs(phi, *halo), *map(_ptr, out), _ptr(rhs), stream)
     return (*out, rhs)
 
 
 def fused_pass(cfg: Config, pf, ph=None, phn=None, pg=None, phi=None,
                out=None, *, hartley_x: Optional[bool] = None,
-               phi_hx: bool = False):
-    """One pass of the one-device time loop: the stream of step k-1 and the
-    collide of step k.  (pf, ph, phn, pg): step k-1's post-collision set;
-    phi: phi_k (psi_hx for phi_hx).  Returns step k's post-collision set
-    and RHS (post_f, post_h, post_hn, post_g, rhs), the RHS from step k's
+               phi_hx: bool = False, rows=None, cols=None,
+               phi_halo: Optional[PhiHalo] = None):
+    """One pass of the time loop: the stream of step k-1 and the collide
+    of step k.  (pf, ph, phn, pg): step k-1's post-collision set; phi:
+    phi_k (psi_hx for phi_hx).  Returns step k's post-collision set and
+    RHS (post_f, post_h, post_hn, post_g, rhs), the RHS from step k's
     pre-collision ion moments: what `stream_bc` then `collide` return, bit
     for bit.  The forms compose as `collide`'s do: phi_hx decodes psi by
-    `hartley_rows` first, the x-Hartley forms take the RHS product after
-    the pass.  CUDA tensors launch fused_pass_kernel (counted under the
-    form's name), CPU tensors run `fused_pass_reference`.  `out` may hold
-    a preallocated population set that does not alias the inputs."""
+    `hartley_rows` first (a shard's two psi halo rows too), the x-Hartley
+    forms take the RHS product after the pass.
+
+    On a shard (`cfg` its local grid) the pass pulls across its edges:
+    `rows` as `stream_bc` takes them, the .halo form, where x wraps
+    locally; on a pencil also `cols`, one (xlo, xhi) pair per field (f, h,
+    hn, g; None where inactive), the x-neighbours' post-collision columns
+    x = -1 / x = NX of the directions `edge_dirs(lat, +1 / -1, axis=0)`,
+    (n, NZ, NY) each, with the rows then NX + 2 wide (columns -1 .. NX,
+    the corners the diagonal shard's): the .shard_x form.  `phi_halo`
+    holds the shard's phi halo as `collide` takes it.  CUDA tensors launch
+    fused_pass_kernel, on a shard fused_pass_halo_kernel (counted under
+    the form's name), CPU tensors run `fused_pass_reference`.  `out` may
+    hold a preallocated population set that does not alias the inputs."""
     hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
+    pops = (pf, ph, phn, pg)
+    _check_phi_halo(cfg, phi_halo, hartley_x, pf.device, pf.dtype)
+    _check_rows(cfg, rows, pops, pf.device, pf.dtype, cols=cols)
+    if cfg.physics.enable_ek and (rows is None) != (phi_halo is None):
+        raise ValueError("fused_pass: a shard's pass takes edge rows and "
+                         "a phi halo together")
+    if phi_halo is not None and (cols is None) != (phi_halo.xlo is None):
+        raise ValueError("fused_pass: a pencil shard takes x columns of "
+                         "the populations and of phi together")
     _check(cfg, dict(f=pf, h=ph, hn=phn, g=pg, phi=phi), pf.device, pf.dtype)
-    name = "fused_pass_kernel" + _FORMS[(hartley_x, phi_hx)]
+    name = pass_form(hartley_x, phi_hx, rows, cols)
     if phi_hx:
-        phi = hartley_rows(phi, lift=cfg)
-    *pops, rhs = _fused_pass_plain_rhs(cfg, name, pf, ph, phn, pg, phi, out)
+        phi, phi_halo = _decode(cfg, phi, phi_halo)
+    *pops, rhs = _fused_pass_plain_rhs(cfg, name, pf, ph, phn, pg, phi, out,
+                                       rows, cols, phi_halo)
     if hartley_x:
         rhs = hartley_rows(rhs)
     return (*pops, rhs)

@@ -1,44 +1,57 @@
 """The sharded time loop: the fused step per shard, with halo exchange
 (port of ekpnp/parallel/halo.py).
 
-Each step of a sharded state (parallel/mesh.py) runs, per shard, the fused
-step's kernels on the shard's local block (kernels/fused_step.py: CUDA on
-the card, the plain versions on the CPU), and the spectral solve
-distributed over the mesh (ops/poisson.py with `mesh`).  Shards exchange
-only edge data, through parallel/collectives.py:
+A sharded state (parallel/mesh.py) runs, per shard, the fused step's
+kernels on the shard's local block (kernels/fused_step.py: CUDA on the
+card, the plain versions on the CPU), and the spectral solve distributed
+over the mesh (ops/poisson.py with `mesh`).  Shards exchange only edge
+data, through parallel/collectives.py.  `make_halo_multi_step`, the time
+loop, cuts a chunk of n steps at the stream as the one-device loop does
+(kernels/step.py `_chunk`):
 
   1. phi halo: each shard's first and last row of phi (psi_hx on the phi_hx
      route) go to its y-neighbours, and on a pencil its first and last
      column to its x-neighbours: the E stencil's off-shard reads
-     (`phi_halos`; the collide's .halo / .shard_x forms take them).  The
-     stencil is a cross, so no corner is needed.
-  2. collide per shard: post-collision populations into a scratch set, and
-     the RHS.
-  3. post rows: each shard's post-collision edge rows go to its
-     y-neighbours, only the directions that pull across that edge (9 of 27
-     on D3Q27, 5 of 19, 1 of 7; `post_rows`).  With overlap=True they
-     travel on a side stream of each card while the solve runs, the
-     counterpart of the JAX package's one-step-lookahead exchange
-     (halo.py:48-61): the stream launch waits for them, nothing else does.
-  4. the solve of the RHS shards, distributed.
-  5. stream per shard (stream_bc .halo form), x wrapping locally; on a
-     pencil `fix_x_columns` then repairs the two wrap columns by sending
-     each shard's own wrap columns around the x ring, as the JAX package
-     does (halo.py fix_x_columns): the locally wrapped column is what the
-     x-neighbour needs, corners included, since the sender's stream already
-     read its y-halo rows.
+     (`phi_halos`; the .halo / .shard_x forms take them).  The stencil is a
+     cross, so no corner is needed.
+  2. collide per shard, once a chunk: post-collision populations into the
+     second population set, and the RHS.
+  3. post edges: each shard's post-collision edge data go to its
+     neighbours, only the directions that pull across that edge (9 of 27
+     on D3Q27, 5 of 19, 1 of 7): on a slab its edge rows (`post_rows`); on
+     a pencil first its edge columns to the x-neighbours (`post_cols`),
+     then its edge rows cut from its block widened by the two columns it
+     received, so that the rows carry the diagonal shards' corner values
+     (`post_edges`).  With overlap=True they travel on a side stream of
+     each card while the solve runs, the counterpart of the JAX package's
+     one-step-lookahead exchange (halo.py:48-61): the next launch waits for
+     them, nothing else does.
+  4. the solve of the RHS shards, distributed; then the phi halo of the new
+     phi (1), on the main stream.
+  5. the fused pass per shard (`fs.fused_pass` with rows, columns and phi
+     halo): the stream of this step pulling across the shard's edges, and
+     the collide of the next; back to 3, n - 1 times.  Nothing repairs a
+     column after a pass: the pass collides what it pulls at once.
+  6. the chunk's last stream per shard (stream_bc .halo form) from the
+     rows, x wrapping locally; on a pencil `fix_x_columns` then repairs the
+     two wrap columns by sending each shard's own wrap columns around the x
+     ring, as the JAX package does (halo.py fix_x_columns): the locally
+     wrapped column is what the x-neighbour needs, corners included, since
+     the sender's stream already read its y-halo rows.
 
-This is not the TPU kernel's data flow: there the halo travels as
-pre-collision 8-row blocks (DMA alignment) and the halo rows are collided
-again.  The two-launch split lets post-collision rows travel instead, and
-only the pulling directions.  The JAX package's EKPNP_OVERLAP switch is a
-plain argument here (`overlap`).
+`step_halo` is one two-launch step (a collide and a stream per shard), to
+which the chunk is held bit for bit.  This is not the TPU kernel's data
+flow: there the halo travels as pre-collision 8-row blocks (DMA
+alignment) and the halo rows are collided again.  Here post-collision
+rows and columns travel instead, and only the pulling directions.  The
+JAX package's EKPNP_OVERLAP switch is a plain argument here (`overlap`).
 
 One deliberate difference: the JAX package's pencil path leaves the
 scalar fields' wall planes out of the column repair (all_z=False), but
 under charge_bc "zerograd-top" the ions' top plane IS x-streamed (from
-plane NZ-2), so its wrap columns need the repair too; here they get it,
-and the pencil result equals the unsharded step there as everywhere.
+plane NZ-2), so its wrap columns need the repair (and the pass's
+columns carry every plane); here they get it, and the pencil result
+equals the unsharded step there as everywhere.
 """
 from __future__ import annotations
 
@@ -69,6 +82,22 @@ def _dirs(lat, axis: int, sign: int, device: torch.device):
     return torch.tensor(fs.edge_dirs(lat, sign, axis), device=device)
 
 
+@lru_cache(maxsize=None)
+def _corners(lat, ey: int, device: torch.device):
+    """For the rows of the directions with this ey (`_dirs(lat, 1, ey)`):
+    the places of those with ex = +1 and their slots among the ex = +1
+    columns, then the same for ex = -1, as index tensors on `device`: where
+    a widened row takes its end values from the received columns."""
+    dirs = fs.edge_dirs(lat, ey, 1)
+    out = []
+    for ex in (1, -1):
+        xd = fs.edge_dirs(lat, ex, 0)
+        at = [i for i, d in enumerate(dirs) if d in xd]
+        out += [at, [xd.index(dirs[i]) for i in at]]
+    return tuple(torch.tensor(v, dtype=torch.long, device=device)
+                 for v in out)
+
+
 def phi_halos(mesh: Mesh, phi):
     """The phi (or psi_hx) halo of every shard: rows y = -1 and y = NYl
     from the y-neighbours, and on a pencil columns x = -1 and x = NXl from
@@ -83,22 +112,69 @@ def phi_halos(mesh: Mesh, phi):
     return [PhiHalo(*h) for h in zip(ylo, yhi, xlo, xhi)]
 
 
-def post_rows(cfg_l: Config, mesh: Mesh, posts):
-    """posts: per shard (pf, ph, phn, pg).  Returns per shard the `rows`
-    argument of its stream: per field (lo, hi) = the y-neighbours'
-    post-collision rows y = -1 / y = NYl, the directions with ey = +1 / -1
-    only (kernels/fused_step.edge_dirs), or None for an inactive field."""
+def _exchange(cfg_l: Config, mesh: Mesh, posts, axis: str, pick):
+    """Per shard, per field, (lo, hi) = what `pick(i, k, lat, edge, sign)`
+    cuts from shard i's field k at its last (edge -1, sign +1) or first
+    (edge 0, sign -1) row or column, received from the neighbour before /
+    after along mesh axis `axis`; None for an inactive field."""
     per_field = []
     for k, lat in enumerate(_lattices(cfg_l)):
         if posts[0][k] is None:
             per_field.append([None] * mesh.size)
             continue
-        pick = lambda y, ey: [p[k][:, :, y].index_select(
-            0, _dirs(lat, 1, ey, p[k].device)) for p in posts]
-        lo = ring_shift(mesh, pick(-1, 1), "y", 1)
-        hi = ring_shift(mesh, pick(0, -1), "y", -1)
+        cut = lambda edge, sign: [pick(i, k, lat, edge, sign)
+                                  for i in range(mesh.size)]
+        lo = ring_shift(mesh, cut(-1, 1), axis, 1)
+        hi = ring_shift(mesh, cut(0, -1), axis, -1)
         per_field.append(list(zip(lo, hi)))
     return [tuple(f[i] for f in per_field) for i in range(mesh.size)]
+
+
+def post_cols(cfg_l: Config, mesh: Mesh, posts):
+    """posts: per shard (pf, ph, phn, pg) on a pencil.  Returns per shard
+    the `cols` argument of its pass: per field (xlo, xhi) = the
+    x-neighbours' post-collision columns x = -1 / x = NXl, the directions
+    with ex = +1 / -1 only, every z plane (the ions' top plane under
+    zerograd-top pulls along x from plane NZ-2), (n, NZ, NYl) each, or None
+    for an inactive field."""
+    def pick(i, k, lat, x, ex):
+        a = posts[i][k]
+        return a[..., x].index_select(0, _dirs(lat, 0, ex, a.device))
+    return _exchange(cfg_l, mesh, posts, "x", pick)
+
+
+def post_rows(cfg_l: Config, mesh: Mesh, posts, cols=None):
+    """posts: per shard (pf, ph, phn, pg).  Returns per shard the `rows`
+    argument of its stream: per field (lo, hi) = the y-neighbours'
+    post-collision rows y = -1 / y = NYl, the directions with ey = +1 / -1
+    only (kernels/fused_step.edge_dirs), or None for an inactive field.
+    cols: on a pencil, per shard the columns it has received (`post_cols`):
+    each row is then cut from the sender's block widened by those columns,
+    columns -1 .. NXl, so that a row carries the diagonal shard's corner
+    values (the rows of a pencil's pass)."""
+    def pick(i, k, lat, y, ey):
+        a = posts[i][k]
+        row = a[:, :, y].index_select(0, _dirs(lat, 1, ey, a.device))
+        if cols is None:
+            return row
+        lo, hi = cols[i][k]  # columns -1 .. NXl
+        pp, sp, pm, sm = _corners(lat, ey, a.device)
+        wide = row.new_zeros(row.shape[:2] + (row.shape[2] + 2,))
+        wide[:, :, 1:-1] = row
+        wide[pp, :, 0] = lo[sp, :, y]
+        wide[pm, :, -1] = hi[sm, :, y]
+        return wide
+    return _exchange(cfg_l, mesh, posts, "y", pick)
+
+
+def post_edges(cfg_l: Config, mesh: Mesh, posts):
+    """Per shard the (rows, cols) of its pass: on a slab the rows of
+    `post_rows` and no columns; on a pencil the columns first, then the
+    rows widened by them (the diagonal shards' corners ride the rows)."""
+    if not mesh.pencil:
+        return [(r, None) for r in post_rows(cfg_l, mesh, posts)]
+    cols = post_cols(cfg_l, mesh, posts)
+    return list(zip(post_rows(cfg_l, mesh, posts, cols), cols))
 
 
 def fix_x_columns(cfg_l: Config, mesh: Mesh, outs) -> None:
@@ -147,20 +223,26 @@ def _on_side_streams(mesh: Mesh, fn):
     def join():
         for d in cards:
             mains[d].wait_stream(_side_stream(d))
-        for shard_rows in result:
-            for pair in shard_rows:
-                for t in pair or ():
-                    t.record_stream(mains[t.device])
+        for t in _tensors(result):
+            t.record_stream(mains[t.device])
     return result, join
 
 
+def _tensors(x):
+    """The tensors of a nest of tuples and lists."""
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _tensors(y)
+
+
 def step_halo(cfg: Config, mesh: Mesh, state: State, phi_hx: bool = False,
-              out=None, post=None, overlap: bool = True) -> State:
-    """One step of a sharded state: per-shard fused step with the halo
-    exchange, then the distributed solve.  phi_hx: state.phi holds psi_hx
-    (slab meshes; the halo rows travel as psi and the collide decodes them).
-    out / post: per shard, preallocated population sets for the streamed
-    state and the post-collision scratch (make_halo_multi_step)."""
+              overlap: bool = True) -> State:
+    """One two-launch step of a sharded state: per shard a collide and a
+    stream with the halo exchange, and the distributed solve.  phi_hx:
+    state.phi holds psi_hx (slab meshes; the halo rows travel as psi and
+    the collide decodes them)."""
     p = cfg.physics
     cfg_l = local_cfg(cfg, mesh)
     ek = p.enable_ek
@@ -171,8 +253,7 @@ def step_halo(cfg: Config, mesh: Mesh, state: State, phi_hx: bool = False,
     for i in range(mesh.size):
         st = shard(state, i)
         *pc, r = fs.collide(cfg_l, st.f, st.h, st.hn, st.g, st.phi,
-                            post=post[i] if post else None, hartley_x=hx,
-                            phi_hx=phi_hx, phi_halo=halos[i])
+                            hartley_x=hx, phi_hx=phi_hx, phi_halo=halos[i])
         posts.append(tuple(pc))
         rhs.append(r)
     if overlap:
@@ -185,8 +266,8 @@ def step_halo(cfg: Config, mesh: Mesh, state: State, phi_hx: bool = False,
         phi = (poisson_psi_hx_from_rhs(cfg, rhs, mesh) if phi_hx else
                poisson_phi_from_rhs(cfg, rhs, mesh, rhs_hx=hx))
     join()
-    outs = [fs.stream_bc(cfg_l, *posts[i], out=out[i] if out else None,
-                         rows=rows[i]) for i in range(mesh.size)]
+    outs = [fs.stream_bc(cfg_l, *posts[i], rows=rows[i])
+            for i in range(mesh.size)]
     if mesh.pencil:
         fix_x_columns(cfg_l, mesh, outs)
     lists = [None if outs[0][k] is None else [o[k] for o in outs]
@@ -197,32 +278,93 @@ def step_halo(cfg: Config, mesh: Mesh, state: State, phi_hx: bool = False,
 def make_halo_multi_step(cfg: Config, mesh: Mesh, n: int,
                          overlap: bool = True,
                          phi_hx: Optional[bool] = None):
-    """fn(state) -> state: n `step_halo` steps of a sharded state.  Where
-    the shard can carry phi as psi_hx (`phi_hx_capable` of the local
+    """fn(state) -> state: n steps of a sharded state, cut at the stream as
+    kernels/step.py `_chunk` cuts one device's: per shard one collide of
+    the route's shard form, then n - 1 fused passes (the stream of step
+    k - 1 and the collide of step k; `fs.fused_pass` with the shard's edge
+    rows and, on a pencil, columns), then one stream (and on a pencil
+    `fix_x_columns`).  Equal to n `step_halo` steps bit for bit.
+
+    After the collide or pass of step k, the edge exchange of step k's
+    post-collision set goes on a side stream of each card (overlap=True;
+    serial with overlap=False) while the distributed solve runs, the phi
+    halo of the new phi on the main stream; the next pass waits for both.
+    On a pencil the exchange sends the x columns first and then the rows
+    cut from the block widened by them (`post_edges`); the chunk's last
+    exchange is the stream's rows (`post_rows`).  Two population sets
+    ping-pong per shard: the input state's, DONATED, and one more.
+
+    Where the shard can carry phi as psi_hx (`phi_hx_capable` of the local
     config, slab meshes only: the codec needs x whole) the chunk encodes
     once, decodes once and runs the phi_hx route, as the JAX package's
     chunk does; phi_hx=False forces real phi between steps (the hartley_x
-    form on slabs).  Population sets ping-pong per shard; the input state's
-    population tensors are DONATED.  Raises for a mesh the step cannot
-    take (divisibility)."""
+    form on slabs).  Raises for a mesh the step cannot take
+    (divisibility)."""
     cfg_l = local_cfg(cfg, mesh)
     capable = not mesh.pencil and phi_hx_capable(cfg_l)
     hx = capable if phi_hx is None else phi_hx
     if hx and not capable:
         raise ValueError("phi_hx needs a slab mesh and phi_hx_capable")
+    ek = cfg.physics.enable_ek
+    dt = cfg.physics.dt(cfg.grid.dx)
+    # pencil shards take the plain RHS: the x-Hartley forms need x whole
+    rhs_hx = fs.resolve_hartley_x(cfg_l, False if mesh.pencil else None, hx)
+    form = dict(hartley_x=rhs_hx, phi_hx=hx)
+    shards = range(mesh.size)
+
+    def exchange(posts, last: bool):
+        """The edges of the post sets (per shard (rows, cols)) and the join
+        the next launch waits for."""
+        def edges():
+            if last:
+                return [(r, None) for r in post_rows(cfg_l, mesh, posts)]
+            return post_edges(cfg_l, mesh, posts)
+        if overlap:
+            return _on_side_streams(mesh, edges)
+        return edges(), (lambda: None)
 
     def run(state: State) -> State:
         if n <= 0:
             return state
         if hx:
             state = state._replace(phi=psi_hx_from_phi(cfg, state.phi, mesh))
-        post = [fs._empty_like_fields(cfg_l, f) for f in state.f]
-        spare = [fs._empty_like_fields(cfg_l, f) for f in state.f]
-        for _ in range(n):
-            prev = [tuple(shard(state, i)[:4]) for i in range(mesh.size)]
-            state = step_halo(cfg, mesh, state, phi_hx=hx, out=spare,
-                              post=post, overlap=overlap)
-            spare = prev
+        phi, t = state.phi, state.t
+        spare = [tuple(shard(state, i)[:4]) for i in shards]
+        halos = phi_halos(mesh, phi) if ek else [None] * mesh.size
+        posts, rhs = [], []
+        for i in shards:
+            *pc, r = fs.collide(cfg_l, *spare[i], None if phi is None else phi[i],
+                                post=fs._empty_like_fields(cfg_l, spare[i][0]),
+                                phi_halo=halos[i], **form)
+            posts.append(tuple(pc))
+            rhs.append(r)
+        del state
+        for k in range(n):
+            last = k == n - 1
+            edges, join = exchange(posts, last)
+            if ek:
+                phi = (poisson_psi_hx_from_rhs(cfg, rhs, mesh) if hx else
+                       poisson_phi_from_rhs(cfg, rhs, mesh, rhs_hx=rhs_hx))
+                if not last:
+                    halos = phi_halos(mesh, phi)
+            t = t + dt
+            join()
+            if last:
+                break
+            nxt = [fs.fused_pass(cfg_l, *posts[i],
+                                 None if phi is None else phi[i],
+                                 out=spare[i], rows=edges[i][0],
+                                 cols=edges[i][1], phi_halo=halos[i], **form)
+                   for i in shards]
+            spare, posts = posts, [tuple(x[:4]) for x in nxt]
+            rhs = [x[4] for x in nxt]
+        outs = [fs.stream_bc(cfg_l, *posts[i], out=spare[i],
+                             rows=edges[i][0]) for i in shards]
+        if mesh.pencil:
+            fix_x_columns(cfg_l, mesh, outs)
+        lists = [None if outs[0][k] is None else [o[k] for o in outs]
+                 for k in range(4)]
+        state = State(*lists, phi=phi, t=t)
         if hx:
             state = state._replace(phi=phi_from_psi_hx(cfg, state.phi, mesh))
         return state

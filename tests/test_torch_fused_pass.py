@@ -139,14 +139,16 @@ def test_chunks_compose_bit_for_bit(case):
 def _card_like(fn, key):
     """`fn` (collide, fused_pass or stream_bc) writing its populations into
     the set passed as `key` (post / out), as its kernel does on the card,
-    and returning that set; the set must not share storage with an
-    input."""
+    and returning that set; the set must not share storage with an input
+    (the populations, phi, and a shard's edge rows and columns)."""
     def run(cfg, *args, **kw):
         buf = kw.get(key)
         res = fn(cfg, *args, **kw)
         if buf is None:
             return res
-        taken = {a.untyped_storage().data_ptr() for a in args
+        edges = [t for e in (kw.get("rows"), kw.get("cols")) if e
+                 for pair in e if pair for t in pair]
+        taken = {a.untyped_storage().data_ptr() for a in (*args, *edges)
                  if torch.is_tensor(a)}
         assert not any(b is not None and b.untyped_storage().data_ptr()
                        in taken for b in buf), "a launch writes its input"

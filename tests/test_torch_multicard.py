@@ -52,8 +52,9 @@ def _run(cfg, devices, pencil, state, overlap=True):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_shards_on_four_cards_match_one_card(case, pencil):
     """Shards on cuda:0-3 equal the same mesh stacked on cuda:0, max|d| /
-    max|ref| <= 1e-12 per field (f64), with steps x shards launches of the
-    route's forms (and its row products) on each; the overlapped chunk
+    max|ref| <= 1e-12 per field (f64), with the chunk's launches of the
+    route's forms (per shard a collide, a fused pass for every other step
+    and a stream, and the row products) on each; the overlapped chunk
     equals the serial one bit for bit."""
     import ekpnp_torch
     from ekpnp_torch.init import initialize
@@ -69,12 +70,15 @@ def test_shards_on_four_cards_match_one_card(case, pencil):
     want, n1 = _run(cfg, [torch.device("cuda", 0)] * 4, pencil, clone(state))
     got, n4 = _run(cfg, cards, pencil, clone(state))
     serial, _ = _run(cfg, cards, pencil, clone(state), overlap=False)
-    # the slab's phi_hx .halo route: per shard and step one collide and
-    # four row products (psi, its two halo rows, the RHS)
-    want_n = ({"collide_kernel.shard_x": 4 * STEPS} if pencil else
-              {"collide_kernel.phi_hx.halo": 4 * STEPS,
+    # one chunk: per shard one collide, STEPS - 1 fused passes and one
+    # stream; the slab's phi_hx .halo route adds four row products per
+    # shard and step (psi, its two halo rows, the RHS)
+    want_n = ({"collide_kernel.shard_x": 4,
+               "fused_pass_kernel.shard_x": 4 * (STEPS - 1)} if pencil else
+              {"collide_kernel.phi_hx.halo": 4,
+               "fused_pass_kernel.phi_hx.halo": 4 * (STEPS - 1),
                "hartley_rows_kernel": 16 * STEPS})
-    want_n["stream_bc_kernel.halo"] = 4 * STEPS
+    want_n["stream_bc_kernel.halo"] = 4
     assert n1 == n4 == want_n
     for k in ("f", "h", "hn", "g", "phi"):
         a, b, c = getattr(got, k), getattr(want, k), getattr(serial, k)
