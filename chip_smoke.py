@@ -7,11 +7,14 @@ It drives the port only (no JAX, nothing of `ekpnp`) and fails, without
 printing the final line, if any phase fails:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the fused step kernels from csrc/fused_step.cu (nvcc, sm_90a);
+  2. build the fused step kernels from csrc/fused_step.cu (nvcc, sm_90a),
+     registers and spill stores per kernel (per lattice pair for the
+     collide, the passes and the stream);
   3. kernels vs their plain PyTorch versions on the card: the row product
      hartley_rows_kernel alone at NX 10, 16, 25, 50, 256 and 512 on row
      counts no multiple of its tile (plain and lifted, aligned and not);
-     then physics cases A-J and the reference's own 50x8x51, f64 and f32,
+     every collide form and the stream on an odd 25x7x9 grid (their
+     one-value staging and pull paths); then physics cases A-J and the reference's own 50x8x51, f64 and f32,
      3 steps each, every collide form (plain RHS; with EK on also
      hartley_x and phi_hx, psi encoded from the case's phi) and the fused
      pass of every form (fused_pass_kernel on the plain collide's
@@ -33,10 +36,10 @@ printing the final line, if any phase fails:
      a fused pass for every other step (and the row products per step);
      the state must stay finite; 20 steps of the fused chunk must equal 20
      two-launch steps (step_fused_hx) bit for bit; every collide form, the
-     fused pass of every form, stream_bc, the row product (next to
-     torch.matmul on the same rows) and the three solves are timed by CUDA
-     events and each kernel is held to its plain version on that run's
-     state;
+     fused pass of every form, stream_bc (next to Tensor.copy_ of the same
+     bytes, its practical ceiling), the row product (next to torch.matmul
+     on the same rows) and the three solves are timed by CUDA events and
+     each kernel is held to its plain version on that run's state;
   6. the CLI with the perturbed first step, 10 steps on the card: rc 0,
      finite series;
 then the sharded time loop (ekpnp_torch/parallel), its shards all on the
@@ -299,13 +302,15 @@ def phase_build():
         m = re.search(r"(hartley_rows_kernel|collide_kernel|fused_pass_kernel|"
                       r"fused_pass_halo_kernel|stream_bc_halo_kernel|"
                       r"stream_bc_kernel)"
-                      r"I([fd])(?:Li(\d+)ELi(\d+)E)?(?:Lb([01])E)?", name)
+                      r"I([fd])(?:Li(\d+)ELi(\d+)E)?(?:Li(\d+)E)?"
+                      r"(?:Lb([01])E)?", name)
         rest = info["log"][info["log"].index(name):]
         used = re.search(r"Used (\d+) registers", rest)
         spill = re.search(r"(\d+) bytes spill stores", rest)
         if m and used:
-            key = (m.group(1) + (".vec" if m.group(5) == "1" else "")
-                   + f" {m.group(2)}")
+            # .vec: the row product's aligned form, the stream's 16-byte one
+            vec = m.group(6) == "1" or int(m.group(5) or 1) > 1
+            key = m.group(1) + (".vec" if vec else "") + f" {m.group(2)}"
             r, sp = int(used.group(1)), int(spill.group(1)) if spill else 0
             fam[key] = max(fam.get(key, 0), r)
             fam_spill[key] = max(fam_spill.get(key, 0), sp)
@@ -316,7 +321,9 @@ def phase_build():
         f"spill stores max {max(spills or [0])} B; registers / spill stores "
         f"(B) by kernel: " + ", ".join(f"{k} {v}/{fam_spill[k]}"
                                        for k, v in sorted(fam.items())))
-    for fam_name in ("fused_pass_kernel", "fused_pass_halo_kernel"):
+    for fam_name in ("collide_kernel", "fused_pass_kernel",
+                     "fused_pass_halo_kernel", "stream_bc_kernel",
+                     "stream_bc_kernel.vec"):
         log(f"  {fam_name} by type and lattice pair QF/QS: " + ", ".join(
             f"{k.replace(fam_name + ' ', '')} {r}/{sp}"
             for k, (r, sp) in sorted(each.items())
@@ -383,6 +390,44 @@ def rows_vs_plain():
     return worst
 
 
+def odd_grid_vs_plain(worst):
+    """The collide forms and the stream on grids whose node count is odd
+    and NX no multiple of 2 (25x7x9: the collide's one-value staging, the
+    stream's one-value path, which the cases' even grids leave to f32 at
+    NX 10 and 50), the reference and zerograd-top with D3Q7 scalars, f64
+    and f32, against their plain versions; `worst` takes the errors."""
+    import ekpnp_torch
+    from ekpnp_torch.kernels import fused_step as fs
+
+    for dtype in ("float64", "float32"):
+        for seed, ov in enumerate((dict(), dict(charge_bc="zerograd-top",
+                                                scalar_lattice="D3Q7"))):
+            cfg = ekpnp_torch.preset("reference", nx=25, ny=7, nz=9,
+                                     dtype=dtype, **ov)
+            st = make_state(cfg, seed=100 + seed, device="cuda")
+            ins = (st.f, st.h, st.hn, st.g, st.phi)
+            errs = {}
+            for kname, kw in _forms(cfg):
+                x = _form_inputs(cfg, ins, kw)
+                kp = fs.collide(cfg, *x, **kw)
+                errs[kname] = max(rel_err(a, b) for a, b in zip(
+                    kp, fs.collide_reference(cfg, *x, **kw)) if b is not None)
+                if kname == "collide_kernel":
+                    errs["stream_bc_kernel"] = max(
+                        rel_err(a, b) for a, b in zip(
+                            fs.stream_bc(cfg, *kp[:4]),
+                            fs.stream_bc_reference(cfg, *kp[:4]))
+                        if b is not None)
+            for lab, e in errs.items():
+                if e > TOL[dtype]:
+                    raise SystemExit(f"chip_smoke: 25x7x9 {dtype} {lab} rel "
+                                     f"err {e:.3e} > {TOL[dtype]}")
+                worst[(dtype, lab)] = max(worst.get((dtype, lab), 0.0), e)
+            log(f"  25x7x9 {ov.get('charge_bc', 'noflux')} {dtype}: " + " ".join(
+                f"{lab.replace('_kernel', '')} {fmt_err(e)}"
+                for lab, e in errs.items()))
+
+
 def phase_kernels_vs_plain():
     import torch
 
@@ -391,6 +436,7 @@ def phase_kernels_vs_plain():
     from ekpnp_torch.ops.poisson import poisson_phi_from_rhs
 
     worst = rows_vs_plain()  # (dtype, kernel) -> max rel err
+    odd_grid_vs_plain(worst)
     for dtype in ("float64", "float32"):
         for seed, (case, (name, ov)) in enumerate(CASES.items()):
             cfg = ekpnp_torch.preset(name, dtype=dtype, **ov)
@@ -778,6 +824,11 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
                                            if b is not None)
             abs_errs["stream_bc_kernel"] = max(float((a - b).abs().max())
                                                for a, b in zip(kout, ref) if b is not None)
+            # its practical ceiling: device-to-device copies of the same
+            # bytes (the set read once, written once; Tensor.copy_ a field)
+            copy_ms = _events_ms(lambda: [a.copy_(b) for a, b in
+                                          zip(kout, post[:4]) if b is not None],
+                                 10)
             del ref, kout
             plain_ms["stream_bc_kernel"] = _events_ms(
                 lambda: fs.stream_bc_reference(cfg, *post[:4]), 2)
@@ -811,7 +862,7 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
                bound_design_ms=bound_design, rows_decode=decode,
                bytes=bytes_, ops=ops, rel_err=errs, abs_err=abs_errs,
                peak_gb=peak_gb, peak_init_gb=peak_init_gb, finite=finite,
-               series_point_ms=series_ms)
+               series_point_ms=series_ms, copy_ms=copy_ms)
     log(f"{label}: {mlups:.1f} MLUPS, {step_ms:.3f} ms/step (phi_hx route), "
         f"{step_ms_off:.3f} ms/step (phi_hx off: hartley_x form), init "
         f"{init_s:.2f} s, peak {peak_gb:.2f} GB in the time loop "
@@ -822,6 +873,8 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
                if k in bound_design else "")
         two_l = (f", the two launches it replaces {two[k]:.3f} ms"
                  if k in two else "")
+        if k == "stream_bc_kernel":
+            two_l = f", copy of the same bytes (Tensor.copy_) {copy_ms:.3f} ms"
         log(f"  {k}: {ms[k]:.3f} ms (bound {bound[k][0]:.3f}, {bound[k][1]}"
             f"{des}), plain {plain_ms[k]:.2f} ms{lib}{two_l}, rel err "
             f"{errs[k]:.2e}")
@@ -1911,6 +1964,9 @@ def main():
             if k in full["two_launch_ms"]:  # a fused pass
                 row.update(two_launch_ms=full["two_launch_ms"][k],
                            two_launch_ms_d3q7=head["two_launch_ms"][k])
+            if k == "stream_bc_kernel":  # its ceiling: a copy of its bytes
+                row.update(copy_ms=full["copy_ms"],
+                           copy_ms_d3q7=head["copy_ms"])
             if k == "hartley_rows_kernel":  # the RHS rows; decode, pod
                 dec, pod_s = full["rows_decode"], pod["slab4"]
                 row.update(ms_decode=dec["ms"],

@@ -11,8 +11,11 @@
 // device (kernels/step.py _chunk) and per shard of a mesh
 // (parallel/halo.py make_halo_multi_step).
 //
-//   collide_kernel    one thread per node (x fastest, so a warp reads
-//                     contiguous x for every direction):
+//   collide_kernel    one thread per node (x fastest); the block first
+//                     copies its 128 nodes' populations into shared memory
+//                     (a slot of the block is 128 consecutive values of one
+//                     direction: aligned 16-byte cp.async pieces), then
+//                     each thread collides its node from there:
 //                     moments -> E = -grad(phi) from phi's six neighbours
 //                     (periodic in x, y; Ez[0] = Ez[1], Ez[NZ-1] = Ez[NZ-2])
 //                     -> Coulomb + external + buoyancy force -> half-force
@@ -37,10 +40,14 @@
 //                     runs the same operations in the same order, so a
 //                     chunk equals its two-launch steps bit for bit.
 //   fused_pass_halo_kernel  the same pass on a shard (below).
-//   stream_bc_kernel  one thread per node: pull post[d, z-ez, y-ey, x-ex]
-//                     with periodic wrap in all three axes (the fluid's
-//                     z-wrap through the reflected wall planes is the
-//                     reference semantics), then the scalar wall BCs from
+//   stream_bc_kernel  one thread per 4 nodes of a row in f32 (2 in f64;
+//                     one where NX is no multiple): pull post[d, z-ez,
+//                     y-ey, x-ex] through the pass's pull tables (PullSrc),
+//                     16-byte loads at x and the value across x from the
+//                     neighbour lane, with periodic wrap in all three axes
+//                     (the fluid's z-wrap through the reflected wall planes
+//                     is the reference semantics), then the scalar wall BCs
+//                     from
 //                     the post-collision values at the same node: ion
 //                     noflux / injection / zerograd-top, temperature
 //                     anti-bounce-back.  zerograd-top: every ion read of
@@ -105,8 +112,8 @@
 // elements, since a pull is misaligned by ex; 128 nodes x 108 values =
 // 55 KB a block all-D3Q27 f32, dynamic shared memory), which puts all of a
 // thread's loads in flight without holding registers and serves both reads
-// from shared memory.  A direct version reading device memory twice (the
-// collide's way) took nearly twice as long (PERF.md).
+// from shared memory.  A direct version reading device memory twice took
+// nearly twice as long (PERF.md); the collide stages its values too.
 // Constants are folded in double on the host and cast to T, as the TPU
 // kernel's cst() does.  The x-Hartley products add 2 NX operations per RHS
 // value and per decoded phi value, and each sends its rows through device
@@ -261,7 +268,9 @@ __device__ __forceinline__ T moment0(const Params<T>& P, const V& v) {
 // view(P, k, z, y, x, N) is field k's (0 f, 1 h, 2 hn, 3 g) populations at
 // node (z, y, x); a view's (P, d) reads direction d.  The collide body
 // (node_macro, trt_field, collide_node) is the same for every source.
-//   StateSrc  (collide_kernel): the state itself, at the node.
+//   StateSrc  the state itself, at the node (collide_kernel's plane-1
+//             reads for the z=0 wall velocity; its node's own values come
+//             from SlotSrc, the block's copy in shared memory).
 //   PullSrc   the previous step's post-collision set, streamed into the
 //             node as stream_bc_kernel streams it (the one-device
 //             fused_pass_kernel's plane-1 reads for the z=0 wall velocity).
@@ -810,23 +819,98 @@ __device__ __forceinline__ T collide_node(
   return rhs_v;
 }
 
+// The collide's staged view: the node's pre-collision populations in the
+// thread's shared-memory slots (slot_base order, stride kThreads), as the
+// state holds them: a collide reflects no scalar, so no wall rule.  Its
+// own types: fused_pass_kernel keeps StagedSrc as it is (sharing staging
+// types with the pass changed the pass's registers, PERF.md).
+template <typename T>
+struct AtSlot {
+  const T* s;
+  __device__ __forceinline__ T operator()(const Params<T>&, int d) const {
+    return s[d * kThreads];
+  }
+};
+
+template <typename T, int QF, int QS>
+struct SlotSrc {
+  const T* slots;  // this thread's first slot
+  __device__ __forceinline__ AtSlot<T> view(const Params<T>& P, int k, int,
+                                            int, int, int64_t) const {
+    return AtSlot<T>{slots + slot_base<T, QF, QS>(P, k) * kThreads};
+  }
+};
+
+// Active population slots of a node: f, then h, hn, g as active.
+template <typename T, int QF, int QS>
+__device__ __forceinline__ int slot_count(const Params<T>& P) {
+  return slot_base<T, QF, QS>(P, 3) + (P.thermal ? QS : 0);
+}
+
+// Copy the block's pre-collision populations into shared memory: slot s
+// of node n0 + t at smem[s kThreads + t].  A slot of the block is kThreads
+// consecutive values of one direction in the state (x fastest), so the
+// block copies it in pieces of W values, one cp.async each: 16 bytes where
+// N is a multiple of W and the fields are 16-byte aligned (then every
+// piece is), else W = 1 (each thread its own node's values).  Pieces past
+// N are zero-filled and never read.
+template <int W, int QF, int QS, typename T>
+__device__ __forceinline__ void stage_block(const Params<T>& P,
+                                            const StateSrc<T>& pops,
+                                            int64_t n0, int64_t N, T* smem) {
+  constexpr int PER = kThreads / W;  // pieces per slot
+  const int b1 = slot_base<T, QF, QS>(P, 1), b2 = slot_base<T, QF, QS>(P, 2),
+            b3 = slot_base<T, QF, QS>(P, 3);
+  const int n = slot_count<T, QF, QS>(P) * PER;
+  for (int c = threadIdx.x; c < n; c += kThreads) {
+    const int s = c / PER, j = (c % PER) * W;
+    // the field and direction of slot s (slot_base's order)
+    const int k = s < QF ? 0 : (s < b2 ? 1 : (s < b3 ? 2 : 3));
+    const int d = s - (k == 0 ? 0 : (k == 1 ? b1 : (k == 2 ? b2 : b3)));
+    const T* const p = k == 0 ? pops.pop[0]
+                              : (k == 1 ? pops.pop[1]
+                                        : (k == 2 ? pops.pop[2] : pops.pop[3]));
+    const bool ok = n0 + j < N;
+    cp_async<(int)(W * sizeof(T))>(smem + s * kThreads + j,
+                                   ok ? p + d * N + n0 + j : pops.pop[0], ok);
+  }
+}
+
 // The collide, every form: one thread per node, flat 128-thread blocks;
 // the plain RHS (the x-Hartley forms take it through hartley_rows_kernel).
 // `phi` carries the halo rows and columns of a shard (null on one device).
+// The block first copies its nodes' populations into shared memory
+// (stage_block: one read of each value, aligned; vec: in 16-byte pieces),
+// then each thread collides its node from its slots (SlotSrc): the moments,
+// the TRT and the fluid bounce-back read shared memory, not device memory
+// twice or three times.  The z=0 thread's plane-1 reads for the wall
+// velocity stay device-memory reads (StateSrc), as the pass keeps its own.
+// Dynamic shared memory: slot_count x kThreads values.
 template <typename T, int QF, int QS>
 __global__ void __launch_bounds__(kThreads) collide_kernel(
     const Params<T> P, const StateSrc<T> pops, const T* __restrict__ phi_,
-    const PhiHalo<T> halo, T* __restrict__ pf, T* __restrict__ ph,
+    const PhiHalo<T> halo, int vec, T* __restrict__ pf, T* __restrict__ ph,
     T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
   const int64_t plane = (int64_t)P.ny * P.nx;
   const int64_t N = plane * P.nz;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n0 = (int64_t)blockIdx.x * kThreads;
+  if (vec)
+    stage_block<(int)(16 / sizeof(T)), QF, QS>(P, pops, n0, N, smem);
+  else
+    stage_block<1, QF, QS>(P, pops, n0, N, smem);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // a thread reads slots other threads copied
+  const int64_t idx = n0 + threadIdx.x;
   if (idx >= N) return;
   const int x = (int)(idx % P.nx);
   const int y = (int)((idx / P.nx) % P.ny);
   const int z = (int)(idx / plane);
+  const SlotSrc<T, QF, QS> src{smem + threadIdx.x};
   const PhiSrc<T> phi(phi_, halo, P.ny, P.nx);
-  const T r = collide_node<T, QF, QS>(P, pops, pops, phi, pf, ph, phn, pg,
+  const T r = collide_node<T, QF, QS>(P, src, pops, phi, pf, ph, phn, pg,
                                       z, y, x, N, idx);
   if (P.ek && z >= 1 && z <= P.nz - 2) rhs[idx - plane] = r;
 }
@@ -1049,56 +1133,121 @@ __device__ __forceinline__ void scalar_wall(
   }
 }
 
-// One device: stream one scalar field into node (z, y, x), periodic in
-// every axis, and apply its wall BC.  k: 0 = h, 1 = hn, 2 = g;  ion = the
-// charge BC applies (k < 2).
-template <int Q, typename T>
-__device__ __forceinline__ void stream_scalar(
-    const Params<T>& P, const T* __restrict__ post, T* __restrict__ out,
-    int k, bool ion, int z, int y, int x, int64_t N, int64_t idx) {
-  const int64_t plane = (int64_t)P.ny * P.nx;
-  const bool zg = ion && P.cbc == 2;
-  const bool wall = z == 0 || z == P.nz - 1;
-  if (wall && !(zg && z == P.nz - 1)) {
-    scalar_wall<Q>(P, post, out, k, z, N, idx);
-    return;
-  }
+// W values from device memory as one 16-byte load (read-only path)
+__device__ __forceinline__ void ldg_vec(float* v, const float* p) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void ldg_vec(double* v, const double* p) {
+  const double2 t = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = t.x; v[1] = t.y;
+}
+
+// Directions a thread of stream_bc_kernel loads before it stores them
+// (a third of D3Q27 per batch)
+constexpr int kStreamBatch = 9;
+
+// One device: stream one field into the W nodes x .. x + W - 1 of a row
+// through its pull view v (PullSrc, built at x: the pass's pull tables and
+// wall rule, one statement of the pull for both kernels).  W = 1: one
+// value a direction, read at v.src(d).  W > 1 (16 bytes; NX a multiple
+// of W, aligned fields): direction d's W sources are row (z - ez, y - ey)
+// at x - ex .. x - ex + W - 1, so the thread loads the aligned W values at
+// x of that row and takes the one it lacks across x from its neighbour
+// lane (ex = +1: lane - 1's last; ex = -1: lane + 1's first), or loads it
+// where the neighbour is no row-mate (lane 0 / 31, or the row's first /
+// last W nodes: the wrap); a scalar's wall node reads its own W nodes of
+// the opposite direction, and the wall rule applies to each value.
+// Loads go out kStreamBatch directions at a time before their stores.
+// `live`: the thread's nodes exist (with W > 1, threads past N take part
+// in the shuffles and store nothing; with W = 1 they have returned).
+template <int Q, int W, typename T>
+__device__ __forceinline__ void stream_field(const Params<T>& P,
+                                             const Pulled<T>& v,
+                                             T* __restrict__ out, int x,
+                                             bool live) {
+  const int64_t N = v.N;
+  if constexpr (W == 1) {
+    T r[Q];
 #pragma unroll
-  for (int d = 0; d < Q; ++d) {
-    const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
-    int sz = z - ez;
-    if (zg && (z == P.nz - 1 || sz == P.nz - 1)) sz = P.nz - 2;
-    const int sy = (y - ey + P.ny) % P.ny, sx = (x - ex + P.nx) % P.nx;
-    out[d * N + idx] = ld(post, d * N + sz * plane + (int64_t)sy * P.nx + sx);
+    for (int d = 0; d < Q; ++d) r[d] = v(P, d);
+#pragma unroll
+    for (int d = 0; d < Q; ++d) out[d * N + v.idx] = r[d];
+  } else {
+    const int lane = threadIdx.x & 31;
+    const int xm = x == 0 ? P.nx - 1 : x - 1;
+    const int xp = x + W == P.nx ? 0 : x + W;
+#pragma unroll
+    for (int d0 = 0; d0 < Q; d0 += kStreamBatch) {
+      T a[kStreamBatch][W];
+      int64_t row[kStreamBatch];
+#pragma unroll
+      for (int i = 0; i < kStreamBatch; ++i) {
+        const int d = d0 + i;
+        if (d >= Q) break;
+        row[i] = d * N + v.zo[dir_e(d, 2) + 1] + v.yo[dir_e(d, 1) + 1];
+        ldg_vec(a[i], v.p + (v.wall ? dir_opp(d) * N + v.idx : row[i] + x));
+      }
+#pragma unroll
+      for (int i = 0; i < kStreamBatch; ++i) {
+        const int d = d0 + i;
+        if (d >= Q) break;
+        const int ex = dir_e(d, 0);
+        T o[W];
+#pragma unroll
+        for (int j = 0; j < W; ++j) o[j] = a[i][j];
+        if (ex > 0) {
+          T e = __shfl_up_sync(0xffffffffu, a[i][W - 1], 1);
+          if (lane == 0 || x == 0) e = ld(v.p, row[i] + xm);
+          if (!v.wall) {
+#pragma unroll
+            for (int j = W - 1; j > 0; --j) o[j] = a[i][j - 1];
+            o[0] = e;
+          }
+        } else if (ex < 0) {
+          T e = __shfl_down_sync(0xffffffffu, a[i][0], 1);
+          if (lane == 31 || xp == 0) e = ld(v.p, row[i] + xp);
+          if (!v.wall) {
+#pragma unroll
+            for (int j = 0; j < W - 1; ++j) o[j] = a[i][j + 1];
+            o[W - 1] = e;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < W; ++j) o[j] = v.fix(P, d, o[j]);
+        if (live) st_vec(out + d * N + v.idx, o);
+      }
+    }
   }
 }
 
-// One device: one thread per node.
-template <typename T, int QF, int QS>
+// One device: one thread per W nodes of a row (x fastest), reading through
+// the pass's pull tables (PullSrc) at each field: the source planes, rows
+// and columns and the wall rule are worked out once per node and field,
+// not per direction.  W = 16 / sizeof(T) where NX is a multiple of it and
+// the fields are 16-byte aligned (every load and store a 16-byte vector),
+// else 1.
+template <typename T, int QF, int QS, int W>
 __global__ void __launch_bounds__(kThreads) stream_bc_kernel(
-    const Params<T> P, const T* __restrict__ pf, const T* __restrict__ ph,
-    const T* __restrict__ phn, const T* __restrict__ pg, T* __restrict__ f1,
+    const Params<T> P, const PullSrc<T> post, T* __restrict__ f1,
     T* __restrict__ h1, T* __restrict__ hn1, T* __restrict__ g1) {
   const int64_t plane = (int64_t)P.ny * P.nx;
   const int64_t N = plane * P.nz;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= N) return;
+  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = g * W < N;
+  if (W == 1 && !live) return;  // no shuffles: nothing to take part in
+  const int64_t idx = (live ? g : N / W - 1) * W;
   const int x = (int)(idx % P.nx);
   const int y = (int)((idx / P.nx) % P.ny);
   const int z = (int)(idx / plane);
-
-#pragma unroll
-  for (int d = 0; d < QF; ++d) {
-    const int ex = dir_e(d, 0), ey = dir_e(d, 1), ez = dir_e(d, 2);
-    const int sz = (z - ez + P.nz) % P.nz;
-    const int sy = (y - ey + P.ny) % P.ny, sx = (x - ex + P.nx) % P.nx;
-    f1[d * N + idx] = ld(pf, d * N + sz * plane + (int64_t)sy * P.nx + sx);
-  }
+  stream_field<QF, W>(P, post.view(P, 0, z, y, x, N), f1, x, live);
   if (P.ek) {
-    stream_scalar<QS>(P, ph, h1, 0, true, z, y, x, N, idx);
-    if (P.nspec == 2) stream_scalar<QS>(P, phn, hn1, 1, true, z, y, x, N, idx);
+    stream_field<QS, W>(P, post.view(P, 1, z, y, x, N), h1, x, live);
+    if (P.nspec == 2)
+      stream_field<QS, W>(P, post.view(P, 2, z, y, x, N), hn1, x, live);
   }
-  if (P.thermal) stream_scalar<QS>(P, pg, g1, 2, false, z, y, x, N, idx);
+  if (P.thermal)
+    stream_field<QS, W>(P, post.view(P, 3, z, y, x, N), g1, x, live);
 }
 
 // A shard's pull of post[d, sz, y - ey, sx], sz and sx in range.
@@ -1118,8 +1267,9 @@ __device__ __forceinline__ T pull(const Params<T>& P, const PostSrc<T>& s,
             out ? ((int64_t)edge_slot(d) * P.nz + sz) * P.nx + sx : at);
 }
 
-// A shard's scalar field at node (z, y, x): stream_scalar with the
-// neighbours' edge rows in place of the y wrap.
+// A shard's scalar field at node (z, y, x), periodic in x, with the
+// neighbours' edge rows in place of the y wrap, and its wall BC.  k: 0 =
+// h, 1 = hn, 2 = g;  ion = the charge BC applies (k < 2).
 template <int Q, bool EDGE, typename T>
 __device__ __forceinline__ void stream_scalar_halo(
     const Params<T>& P, const PostSrc<T>& src, T* __restrict__ out, int k,
@@ -1327,6 +1477,16 @@ PostRows<T> make_rows(const void* const* p) {
   return r;
 }
 
+inline bool aligned16(const void* p) {
+  return (uintptr_t)p % 16 == 0;  // null (an inactive field) passes
+}
+
+// Slots per node of a staged launch: one per active population.
+inline int slots_of(const HostInts& I, int qf, int qs) {
+  return qf + (I.ek ? I.nspec * qs : 0) + (I.thermal ? qs : 0);
+}
+
+// Dynamic shared memory: one slot per active population and thread.
 template <typename T, int QF, int QS>
 int launch_collide(const HostInts& I, const HostConsts& C, const void* f,
                    const void* h, const void* hn, const void* g,
@@ -1334,8 +1494,16 @@ int launch_collide(const HostInts& I, const HostConsts& C, const void* f,
                    void* pg, void* rhs, cudaStream_t s) {
   const StateSrc<T> pops{{(const T*)f, (const T*)h, (const T*)hn,
                           (const T*)g}};
-  collide_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
-      make_params<T>(I, C), pops, (const T*)phi[0], make_halo<T>(phi),
+  const int64_t n = (int64_t)I.nx * I.ny * I.nz;
+  const int vec = n % (int64_t)(16 / sizeof(T)) == 0 && aligned16(f)
+                  && aligned16(h) && aligned16(hn) && aligned16(g);
+  const size_t smem = (size_t)slots_of(I, QF, QS) * kThreads * sizeof(T);
+  auto kern = collide_kernel<T, QF, QS>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<blocks_for(I), kThreads, smem, s>>>(
+      make_params<T>(I, C), pops, (const T*)phi[0], make_halo<T>(phi), vec,
       (T*)pf, (T*)ph, (T*)phn, (T*)pg, (T*)rhs);
   return (int)cudaGetLastError();
 }
@@ -1350,8 +1518,7 @@ int launch_fused_pass(const HostInts& I, const HostConsts& C,
                       cudaStream_t s) {
   const PullSrc<T> src{{(const T*)post[0], (const T*)post[1],
                         (const T*)post[2], (const T*)post[3]}};
-  const int slots = QF + (I.ek ? I.nspec * QS : 0) + (I.thermal ? QS : 0);
-  const size_t smem = (size_t)slots * kThreads * sizeof(T);
+  const size_t smem = (size_t)slots_of(I, QF, QS) * kThreads * sizeof(T);
   auto kern = fused_pass_kernel<T, QF, QS>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1375,8 +1542,7 @@ int launch_fused_pass_halo(const HostInts& I, const HostConsts& C,
                              (const T*)post[5 * k + 2],
                              (const T*)post[5 * k + 3],
                              (const T*)post[5 * k + 4]};
-  const int slots = QF + (I.ek ? I.nspec * QS : 0) + (I.thermal ? QS : 0);
-  const size_t smem = (size_t)slots * kThreads * sizeof(T);
+  const size_t smem = (size_t)slots_of(I, QF, QS) * kThreads * sizeof(T);
   auto kern = fused_pass_halo_kernel<T, QF, QS>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1420,14 +1586,26 @@ int launch_stream_bc(const HostInts& I, const HostConsts& C,
                      void* g1, cudaStream_t s) {
   const T *pf = (const T*)post[0], *ph = (const T*)post[3],
           *phn = (const T*)post[6], *pg = (const T*)post[9];
-  if (post[1] != nullptr)  // a shard: the f field's rows (all or none)
+  if (post[1] != nullptr) {  // a shard: the f field's rows (all or none)
     stream_bc_halo_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
         make_params<T>(I, C), pf, ph, phn, pg, make_rows<T>(post), (T*)f1,
         (T*)h1, (T*)hn1, (T*)g1);
+    return (int)cudaGetLastError();
+  }
+  constexpr int W = (int)(16 / sizeof(T));
+  const PullSrc<T> src{{pf, ph, phn, pg}};
+  const bool vec = I.nx % W == 0 && aligned16(pf) && aligned16(ph)
+                   && aligned16(phn) && aligned16(pg) && aligned16(f1)
+                   && aligned16(h1) && aligned16(hn1) && aligned16(g1);
+  const int64_t n = (int64_t)I.nx * I.ny * I.nz;
+  const int64_t threads = vec ? n / W : n;
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  if (vec)
+    stream_bc_kernel<T, QF, QS, W><<<blocks, kThreads, 0, s>>>(
+        make_params<T>(I, C), src, (T*)f1, (T*)h1, (T*)hn1, (T*)g1);
   else
-    stream_bc_kernel<T, QF, QS><<<blocks_for(I), kThreads, 0, s>>>(
-        make_params<T>(I, C), pf, ph, phn, pg, (T*)f1, (T*)h1, (T*)hn1,
-        (T*)g1);
+    stream_bc_kernel<T, QF, QS, 1><<<blocks, kThreads, 0, s>>>(
+        make_params<T>(I, C), src, (T*)f1, (T*)h1, (T*)hn1, (T*)g1);
   return (int)cudaGetLastError();
 }
 

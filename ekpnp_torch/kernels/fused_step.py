@@ -21,6 +21,10 @@ then the collide of this step on those values: one pass, 872 B per node
 all-D3Q27 in f32, 392 B with D3Q7 scalars, against the 1736 / 776 B of a
 collide + stream pair) and one `stream_bc` (`stream_bc_kernel`: pull
 stream and scalar wall BCs), each collide or pass followed by the solve.
+The collide and the pass read each value from device memory once, into
+shared memory, and collide from there; the collide's copies are aligned
+(16-byte pieces where the node count allows).  The stream reads through
+the pass's pull tables, 16 bytes a load and a store where NX allows.
 A shard's chunk (parallel/halo.py `make_halo_multi_step`) is cut the same
 way, its pass pulling across the shard's edges from the exchanged rows
 and columns (`fused_pass_halo_kernel`); a one-step

@@ -8,14 +8,23 @@ OTHER_ROOT is another checkout (for example the parent commit, unpacked by
 `git archive` into a directory that .gitignore lists).  Each arm runs in a
 process of its own, since the two checkouts' `ekpnp_torch` packages cannot
 share one: it builds its checkout's f32 kernel library, then times by CUDA
-events (20 launches after one) at 256x256x257 f32:
+events (20 launches after one) at 256x256x257 f32, for `ek-pnp-thermal`
+(every field D3Q27, from its PB cold start; keys `*_d3q27_ms`) and the
+D3Q7 headline (uniform start; `*_d3q7_ms`):
 
-  - the one-device fused pass (plain RHS) of `ek-pnp-thermal` (every field
-    D3Q27, from its PB cold start) and of the D3Q7 headline (uniform
-    start), and
-  - where the checkout has the shard pass, the pass on shard 0 of slab 4
-    and of pencil 2x2 (4 shards on the card), the edge exchange of all
-    shards, and the sharded chunk's ms/step (20 steps, host clock).
+  - `pass`: the one-device fused pass (plain RHS), fused_pass_kernel;
+  - `collide`, `collide_hartley_x`, `collide_phi_hx`: the one-device
+    collide call of each form, its row products included
+    (collide_kernel, .hartley_x, .phi_hx), on the start state (phi_hx:
+    phi encoded as psi_hx first, outside the clock);
+  - `stream`: stream_bc_kernel on the plain collide's post-collision set,
+    and `copy`, Tensor.copy_ of the same bytes into the same output
+    (the stream's practical ceiling);
+  - where the checkout has the shard pass, on `ek-pnp-thermal` only: the
+    pass on shard 0 of slab 4 and of pencil 2x2 (4 shards on the card),
+    the plain collide there (`collide_kernel.halo` on the slab,
+    `.shard_x` on the pencil), the edge exchange of all shards, and the
+    sharded chunk's ms/step (20 steps, host clock).
 
 The arms run other, this, this, other; one line `AB {...}` each, after the
 card's name and power limit.
@@ -59,17 +68,37 @@ def arm(root, tag, build_only):
     import ekpnp_torch
     from ekpnp_torch.device import torch_setup
     from ekpnp_torch.init import initialize, state_from_macro
+    from ekpnp_torch.ops.poisson import psi_hx_from_phi
     from ekpnp_torch.state import Macro
 
     torch_setup()
     res = {"tag": tag}
+
+    def one_device(cfg, st, lat):
+        """The pass, the collide forms, the stream and the copy."""
+        post = fs.collide(cfg, st.f, st.h, st.hn, st.g, st.phi,
+                          hartley_x=False)
+        out = fs._empty_like_fields(cfg, st.f)
+        res[f"pass_{lat}_ms"] = _events_ms(lambda: fs.fused_pass(
+            cfg, *post[:4], st.phi, out=out, hartley_x=False))
+        psi = psi_hx_from_phi(cfg, st.phi)
+        for form, kw, phi in (("collide", dict(hartley_x=False), st.phi),
+                              ("collide_hartley_x", dict(hartley_x=True),
+                               st.phi),
+                              ("collide_phi_hx", dict(phi_hx=True), psi)):
+            res[f"{form}_{lat}_ms"] = _events_ms(lambda: fs.collide(
+                cfg, st.f, st.h, st.hn, st.g, phi, post=out, **kw))
+        res[f"stream_{lat}_ms"] = _events_ms(
+            lambda: fs.stream_bc(cfg, *post[:4], out=out))
+        res[f"copy_{lat}_ms"] = _events_ms(
+            lambda: [a.copy_(b) for a, b in zip(out, post[:4])
+                     if b is not None])
+        del post, out, psi
+        torch.cuda.empty_cache()
+
     cfg = ekpnp_torch.preset("ek-pnp-thermal", pb_omega=0.02)
     st, _ = initialize(cfg, device="cuda")
-    post = fs.collide(cfg, st.f, st.h, st.hn, st.g, st.phi, hartley_x=False)
-    out = fs._empty_like_fields(cfg, st.f)
-    res["pass_d3q27_ms"] = _events_ms(lambda: fs.fused_pass(
-        cfg, *post[:4], st.phi, out=out, hartley_x=False))
-    del post, out
+    one_device(cfg, st, "d3q27")
     head = ekpnp_torch.preset("reference", nx=256, ny=256, nz=257,
                               dtype="float32", fft_method="matmul",
                               scalar_lattice="D3Q7")
@@ -82,11 +111,8 @@ def arm(root, tag, build_only):
                   temp=torch.full(shape, 0.5, **kw))
     hs = state_from_macro(head, macro, torch.zeros(shape, **kw),
                           torch.zeros((3,) + shape, **kw), 0.0)
-    hp = fs.collide(head, hs.f, hs.h, hs.hn, hs.g, hs.phi, hartley_x=False)
-    ho = fs._empty_like_fields(head, hs.f)
-    res["pass_d3q7_ms"] = _events_ms(lambda: fs.fused_pass(
-        head, *hp[:4], hs.phi, out=ho, hartley_x=False))
-    del hs, hp, ho, macro
+    one_device(head, hs, "d3q7")
+    del hs, macro
     torch.cuda.empty_cache()
     if hasattr(fs, "pass_form"):  # the checkout has the shard pass
         from ekpnp_torch.parallel.halo import (make_halo_multi_step,
@@ -103,12 +129,15 @@ def arm(root, tag, build_only):
                                 hartley_x=False)[:4] for i in range(4)]
             rows, cols = post_edges(cfg_l, mesh, posts)[0]
             o = fs._empty_like_fields(cfg_l, posts[0][0])
+            x0 = shard(sh, 0)[:5]
+            res[f"shard_collide_{name}_ms"] = _events_ms(lambda: fs.collide(
+                cfg_l, *x0, post=o, phi_halo=halos[0], hartley_x=False))
             res[f"shard_pass_{name}_ms"] = _events_ms(lambda: fs.fused_pass(
                 cfg_l, *posts[0], sh.phi[0], out=o, rows=rows, cols=cols,
                 phi_halo=halos[0], hartley_x=False))
             res[f"exchange_{name}_ms"] = _events_ms(
                 lambda: post_edges(cfg_l, mesh, posts), 10)
-            del posts, o, rows, cols
+            del posts, o, rows, cols, x0
             sh = make_halo_multi_step(cfg, mesh, 2)(sh)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
