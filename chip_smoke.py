@@ -72,6 +72,17 @@ one card (a mesh may hold a device more than once):
      solve times, launch counts, peak memory;
   6b. the CLI with `--mesh slab --mesh-devices 4`, 10 steps, then `merge`:
      rc 0, a merged data.dat, finite series;
+  6c. `run --distributed` through `python -m torch.distributed.run
+     --standalone`: a world of one NCCL process driving 4 shards on the
+     card (and, where there are 2+ cards, a world of min(4, cards)
+     processes), each beside the same CLI run without --distributed:
+     `ek-pnp-thermal` 256x256x257 f32, pb_omega 0.02, slab 4, 20 steps
+     (series.csv byte for byte, the last per-process dump's fields bit for
+     bit, the route's launches), then `reference` f64 with
+     --checkpoint-full (series.csv, state_end.ckpt and the merged
+     data_end.dat bit for bit); a compressed full-size checkpoint takes
+     minutes of zlib a run, so the checkpoint is compared at reference
+     size;
 then the production run loop, through the entry points a user calls:
   a. the 1000-step reference experiment through the CLI, f64, perturbed
      first step, --checkpoint-full: the JAX package's pinned series tail
@@ -1538,6 +1549,134 @@ def phase_cli():
     return dict(seconds=secs, last_row=last)
 
 
+def _group_run(argv, timeout, label):
+    """argv in a process group of its own (a launcher and its workers), one
+    torch thread each, its output captured; the whole group is killed at
+    the timeout or once it has ended.  Fails the smoke unless it exits 0
+    in time."""
+    import contextlib
+    import signal
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(
+        __file__)), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        out = None
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    if out is None:
+        raise SystemExit(f"chip_smoke: {label}: no end within {timeout} s")
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: {label}: rc {proc.returncode}:\n"
+                         f"{out[-3000:]}")
+    return out
+
+
+def phase_distributed():
+    """6c: `run --distributed` (one NCCL process per card) beside the same
+    run without it, bit for bit: at full size the series, the last dump's
+    fields and the route's launches; at reference size with
+    --checkpoint-full also state_end.ckpt and the merged data_end.dat."""
+    import numpy as np
+    import torch
+
+    import ekpnp_torch
+    from ekpnp_torch.io.checkpoint import load_sharded
+    from ekpnp_torch.io.fields import _assemble, list_dump_dirs
+    from ekpnp_torch.kernels.fused_step import KERNELS
+
+    count = torch.cuda.device_count()
+    worlds = [1] + ([min(4, count)] if count >= 2 else [])
+    log(f"(6c) run --distributed: worlds of {worlds} NCCL process(es), "
+        f"{count} card(s) visible")
+    sizes = {  # preset, flags, overrides, precision, nsave, print_current,
+        # steps
+        "full": ("ek-pnp-thermal", [], ["pb_omega=0.02"], "f32", 20, 10, 20),
+        "small": ("reference", ["--checkpoint-full"], [], "f64", 5, 5, 10)}
+    root = os.path.join("smoke_out", "distributed")
+    res = dict(worlds=worlds, launches=[], seconds={})
+    for size, (preset, flags, sets, prec, nsave, ncur, steps) in sizes.items():
+        cfg = ekpnp_torch.preset(preset, dtype={"f32": "float32",
+                                                "f64": "float64"}[prec])
+
+        def cli(tag, launcher, extra, per):
+            """The run, its rank 0's launches held to the route's for
+            `per` shards a process."""
+            out = os.path.join(root, f"{size}_{tag}")
+            label = f"distributed {size}, {tag}"
+            t0 = time.perf_counter()
+            text = _group_run(
+                [*launcher, "-m", "ekpnp_torch", "run", preset, *flags,
+                 "--set", *sets, f"nsave={nsave}", f"print_current={ncur}",
+                 "--steps", str(steps), "--precision", prec, "--mesh", "slab",
+                 "--mesh-devices", "4", "--outdir", out, *extra], 600, label)
+            res["seconds"][f"{size}_{tag}"] = time.perf_counter() - t0
+            got = json.loads(text.split("kernel launches:")[1].splitlines()[0])
+            counts = {k: got.get(k, 0) for k in KERNELS}
+            _want_launches(counts, label, **_route(
+                "collide_kernel.phi_hx.halo", (steps - 1) * per,
+                _cli_chunks(steps, nsave, ncur) * per,
+                "stream_bc_kernel.halo"))
+            res["launches"].append(counts)
+            return out, text
+
+        ref, _ = cli("one", [sys.executable], [], 4)
+        last = lambda d: _assemble(list_dump_dirs(d)[-1], cfg)
+        want = last(ref)
+        for w in worlds:
+            out, text = cli(
+                f"world{w}", [sys.executable, "-m", "torch.distributed.run",
+                              "--standalone", "--nproc-per-node", str(w)],
+                ["--distributed"], 4 // w)
+            label = f"distributed {size}, world {w}"
+            if f"in each of {w} processes (nccl)" not in text:
+                raise SystemExit(f"chip_smoke: {label}: not over NCCL:\n"
+                                 f"{text[-2000:]}")
+            for name in ("series.csv", "umax.dat"):
+                a, b = (open(os.path.join(d, name), "rb").read()
+                        for d in (out, ref))
+                if a != b or not a:
+                    raise SystemExit(f"chip_smoke: {label}: {name} differs "
+                                     f"from the one-process run")
+            got = last(out)
+            for k, x, y in [*zip(want[0]._fields, got[0], want[0]),
+                            ("phi", got[1], want[1]), ("E", got[2], want[2]),
+                            ("t", got[3], want[3])]:
+                if not np.array_equal(x, y):
+                    raise SystemExit(f"chip_smoke: {label}: dumped {k} "
+                                     f"differs")
+            if size == "small":
+                ends = []
+                for d in (out, ref):
+                    _group_run([sys.executable, "-m", "ekpnp_torch", "merge",
+                                "reference", "--precision", prec, d], 300,
+                               f"merge {d}")
+                    ends.append(open(os.path.join(d, "data_end.dat"),
+                                     "rb").read())
+                a, b = (load_sharded(os.path.join(d, "state_end.ckpt"), cfg,
+                                     device="cpu") for d in (out, ref))
+                same = all((x is None and y is None) or torch.equal(x, y)
+                           for x, y in zip(a, b))
+                if ends[0] != ends[1] or not same:
+                    raise SystemExit(f"chip_smoke: {label}: merged "
+                                     f"data_end.dat equal {ends[0] == ends[1]}"
+                                     f", state_end.ckpt equal {same}")
+            secs = res["seconds"]
+            log(f"  {label}: series, last dump"
+                + (", state_end.ckpt, merged data_end.dat" if size == "small"
+                   else "")
+                + f" bit for bit against one process; "
+                f"{secs[f'{size}_world{w}']:.1f} s (one process "
+                f"{secs[f'{size}_one']:.1f} s); rank 0's launches "
+                f"{ {k: v for k, v in res['launches'][-1].items() if v} }")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the production run loop: the CLI, resume, the benchmark entry, step_diff
 # ---------------------------------------------------------------------------
@@ -1926,6 +2065,7 @@ def main():
     report["pod"] = run("pod", phase_pod, bw)
     report["cli"] = run("cli", phase_cli)
     report["sharded_cli"] = run("sharded_cli", phase_sharded_cli)
+    report["distributed"] = run("distributed", phase_distributed)
     report["anchor"] = run("a_anchor", phase_anchor)
     report["cli_full"] = run("b_cli_full", phase_cli_full, full["mlups"])
     report["resume"] = run("c_resume", phase_resume)
@@ -1938,6 +2078,7 @@ def main():
             (r["launches"], r["launches_phi_hx_off"])] + [fft["launches"]]
     runs += [c for m in sharded.values() for c in m["launches"]]
     runs += [m["launches"] for m in pod.values()]
+    runs += report["distributed"]["launches"]
     runs += [report["anchor"]["launches"], report["cli_full"]["launches"],
              report["cli_full"]["no_dump"]["launches"],
              *report["bench"]["launches"].values(),

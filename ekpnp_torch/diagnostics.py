@@ -3,7 +3,10 @@ guard (port of ekpnp/diagnostics.py).  Reductions run on the state's
 device; `series_point` returns 0-d tensors so a caller fetches them with
 one host transfer.  A sharded state (parallel/mesh.py) is reduced shard by
 shard and then over the shards: maxima exactly as on the gathered state,
-sums up to their order of summation."""
+sums up to their order of summation.  Over several processes the
+per-shard partials are all-gathered in mesh order and reduced as one
+process reduces them (not by `all_reduce`, whose order NCCL chooses), so
+every process gets the one-process mesh run's values bit for bit."""
 from __future__ import annotations
 
 import torch
@@ -42,8 +45,9 @@ def velocity_magnitude_max(u):
 
 def _finite(state: State):
     """All entries finite, as a 0-d tensor on the state's (first) device;
-    fields may be lists of shards."""
-    first = state.f[0] if isinstance(state.f, list) else state.f
+    fields may be lists of shards (this process's: None for the others)."""
+    first = (next(t for t in state.f if t is not None)
+             if isinstance(state.f, list) else state.f)
     ok = torch.ones((), dtype=torch.bool, device=first.device)
     for field in state:
         for t in field if isinstance(field, list) else [field]:
@@ -53,40 +57,51 @@ def _finite(state: State):
 
 
 def check_finite(state: State) -> bool:
-    """NaN/Inf guard over every tensor of the state (sharded or not)."""
+    """NaN/Inf guard over every tensor of the state (sharded or not; this
+    process's shards)."""
     return bool(_finite(state))
 
 
 def series_point(cfg: Config, state: State, mesh=None):
     """(umax_uz, umax_mag, current, mean_T, finite) as 0-d tensors; with
-    `mesh`, of a sharded state, on its first shard's device."""
+    `mesh`, of a sharded state, on its first local shard's device (the
+    same values on every process)."""
     from .ops.collide import compute_macro
     from .ops.poisson import efield
 
     ek = cfg.physics.enable_ek
+    thermal = cfg.physics.enable_thermal
     if mesh is None:
         macro, _ = compute_macro(cfg, state)
-        parts = [(macro, efield(cfg, state.phi) if ek else None)]
-    else:
-        from .parallel.halo import shard_macros
+        m, E = macro, efield(cfg, state.phi) if ek else None
+        zero = torch.zeros((), dtype=m.rho.dtype, device=m.rho.device)
+        return (umax(m.u),
+                torch.sqrt(torch.max(torch.sum(m.u * m.u, dim=0))),
+                ionic_current(cfg, m.charge, m.chargen, E[2]) if ek else zero,
+                torch.mean(m.temp) if thermal else zero, _finite(state))
+    from .parallel.collectives import gather_rows
+    from .parallel.halo import shard_macros
+    from .parallel.mesh import shard
 
-        parts = shard_macros(cfg, mesh, state)
-    dev = parts[0][0].rho.device
-    red = lambda fn: torch.stack([fn(m, E).to(dev) for m, E in parts])
-    zero = torch.zeros((), dtype=parts[0][0].rho.dtype, device=dev)
-    um = red(lambda m, E: umax(m.u)).max()
-    umag = torch.sqrt(red(lambda m, E: torch.max(torch.sum(m.u * m.u,
-                                                           dim=0))).max())
-    cur = zero
-    if ek:
-        cur = red(lambda m, E: ionic_current(cfg, m.charge, m.chargen,
-                                             E[2])).sum()
-    mean_t = zero
-    if cfg.physics.enable_thermal:
-        mean_t = (torch.mean(parts[0][0].temp) if mesh is None else
-                  red(lambda m, E: torch.sum(m.temp)).sum()
-                  / cfg.grid.num_nodes)
-    return um, umag, cur, mean_t, _finite(state)
+    parts = shard_macros(cfg, mesh, state)
+    first = parts[mesh.local[0]][0].rho
+    dev = first.device
+    zero = torch.zeros((), dtype=first.dtype, device=dev)
+
+    def row(i):
+        """Shard i's partials: max uz, max |u|^2, its current, sum T and
+        whether its tensors are finite."""
+        m, E = parts[i]
+        return torch.stack([t.to(dev, first.dtype) for t in (
+            umax(m.u), torch.max(torch.sum(m.u * m.u, dim=0)),
+            ionic_current(cfg, m.charge, m.chargen, E[2]) if ek else zero,
+            torch.sum(m.temp) if thermal else zero,
+            _finite(shard(state, i)))])
+
+    rows = gather_rows(mesh, torch.stack([row(i) for i in mesh.local]))
+    mean_t = rows[:, 3].sum() / cfg.grid.num_nodes if thermal else zero
+    return (rows[:, 0].max(), torch.sqrt(rows[:, 1].max()),
+            rows[:, 2].sum() if ek else zero, mean_t, torch.all(rows[:, 4] > 0))
 
 
 def dimensionless_banner(cfg: Config) -> str:

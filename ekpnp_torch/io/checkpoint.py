@@ -194,9 +194,10 @@ def load_full_npz(path: str, cfg: Config, device="cuda") -> State:
 def save_sharded(dirpath: str, cfg: Config, state: State, mesh,
                  pid: int = 0, nprocs: int = 1) -> None:
     """Lossless checkpoint of a sharded state (fields: lists of shards in
-    mesh order): this process's blocks to `dirpath`/shard_<pid>.npz under
-    their global start offsets (0 on the unsharded leading axes), and from
-    process 0 meta.json (grid, lattices, dtype, t, process count)."""
+    mesh order, None where another process holds one): this process's
+    blocks to `dirpath`/shard_<pid>.npz under their global start offsets
+    (0 on the unsharded leading axes), and from process 0 meta.json (grid,
+    lattices, dtype, t, process count)."""
     os.makedirs(dirpath, exist_ok=True)
     payload = {}
     for name in _POPS + ("phi",):
@@ -204,6 +205,8 @@ def save_sharded(dirpath: str, cfg: Config, state: State, mesh,
         if shards is None:
             continue
         for i, a in enumerate(shards):
+            if a is None:
+                continue
             y0, _, x0, _ = mesh.block(cfg, i)
             off = [0] * (a.ndim - 2) + [y0, x0]
             payload[f"{name}@{'_'.join(map(str, off))}"] = \
@@ -252,9 +255,10 @@ def _stitch(pieces, name, lo, hi, dirpath):
 
 def load_sharded(dirpath: str, cfg: Config, mesh=None, device="cuda") -> State:
     """Restore `save_sharded`'s directory exactly, onto `mesh` (a sharded
-    state: each shard's block stitched from the saved pieces and placed on
-    its mesh device) or, with no mesh, as one state on `device`.  The
-    saving mesh may differ from the restoring one."""
+    state: each of this process's shards stitched from the saved pieces
+    and placed on its mesh device, None for the others) or, with no mesh,
+    as one state on `device`.  The saving mesh and process count may
+    differ from the restoring ones."""
     with open(os.path.join(dirpath, "meta.json")) as f:
         meta = json.load(f)
     _check_grid(cfg, meta["grid"])
@@ -265,8 +269,8 @@ def load_sharded(dirpath: str, cfg: Config, mesh=None, device="cuda") -> State:
         devices = [resolve_device(device)]
         blocks = [(0, g.ny, 0, g.nx)]
     else:
-        devices = [mesh.device(i) for i in range(mesh.size)]
-        blocks = [mesh.block(cfg, i) for i in range(mesh.size)]
+        devices = mesh.each(mesh.device)
+        blocks = mesh.each(lambda i: mesh.block(cfg, i))
     pieces = {}
     files = [np.load(p) for p in
              sorted(glob.glob(os.path.join(dirpath, "shard_*.npz")))]
@@ -283,7 +287,11 @@ def load_sharded(dirpath: str, cfg: Config, mesh=None, device="cuda") -> State:
             if name not in pieces:
                 raise ValueError(f"field {name} not present in {dirpath}")
             out = []
-            for dev, (y0, ny, x0, nx) in zip(devices, blocks):
+            for dev, block in zip(devices, blocks):
+                if block is None:  # another process's shard
+                    out.append(None)
+                    continue
+                y0, ny, x0, nx = block
                 lead = len(shape) - 2
                 lo = [0] * lead + [y0, x0]
                 hi = list(shape[:lead]) + [y0 + ny, x0 + nx]
@@ -297,5 +305,5 @@ def load_sharded(dirpath: str, cfg: Config, mesh=None, device="cuda") -> State:
         for fl in files:
             fl.close()
     t = torch.tensor(meta["t"], dtype=torch_dtype(cfg.run.dtype),
-                     device=devices[0])
+                     device=next(d for d in devices if d is not None))
     return State(**fields, t=t)

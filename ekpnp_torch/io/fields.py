@@ -8,7 +8,8 @@ offsets (0 on the unsharded leading axes), and `meta.json` with the grid,
 t and the process count.  That is the JAX package's format exactly, so
 either package's `merge_run_dir` reads either's dumps, and `merge` writes
 the data.dat (and data_end.dat / .npz) a single-device run would have
-written.  The port runs one process (pid 0) for all of its shards.
+written.  Each process of a distributed run writes the shards it holds
+(pid = its rank, nprocs = the world size); one process holds them all.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ def save_fields_sharded(dirpath: str, cfg: Config, mesh, macros, phi, E,
     """Write the shards of the save-cadence fields to
     `dirpath`/shard_<pid>.npz (uncompressed) and, from process 0,
     meta.json.  macros: per shard `Macro`; phi, E: per shard tensors or
-    numpy arrays (None without EK)."""
+    numpy arrays (None without EK); a shard of another process is None
+    in each."""
     os.makedirs(dirpath, exist_ok=True)
     payload = {}
 
@@ -38,8 +40,8 @@ def save_fields_sharded(dirpath: str, cfg: Config, mesh, macros, phi, E,
         if shards is None:
             return
         for i, a in enumerate(shards):
-            if a is None:
-                return
+            if a is None:  # another process's shard, or an absent field
+                continue
             y0, _, x0, _ = mesh.block(cfg, i)
             off = [0] * (a.ndim - 2) + [y0, x0]
             payload[f"{name}@{'_'.join(map(str, off))}"] = (
@@ -47,7 +49,7 @@ def save_fields_sharded(dirpath: str, cfg: Config, mesh, macros, phi, E,
                 else np.asarray(a))
 
     for name in Macro._fields:
-        put(name, [getattr(m, name) for m in macros])
+        put(name, [None if m is None else getattr(m, name) for m in macros])
     put("phi", phi)
     put("E", E)
     np.savez(os.path.join(dirpath, f"shard_{pid}.npz"), **payload)

@@ -17,8 +17,8 @@ Math, identical to the JAX package's:
 
 Sharded runs (ekpnp_torch/parallel): every solve takes `mesh`; its fields
 are then lists of per-shard blocks in mesh order, laid out as the state's
-phi (z whole, y and x cut by the mesh), and the (y, x) stages run
-distributed (parallel/fft.py).  The z stages, the symbol and the lifting
+phi (z whole, y and x cut by the mesh; None for another process's block),
+and the (y, x) stages run distributed (parallel/fft.py).  The z stages, the symbol and the lifting
 are per shard.  The psi_hx codec needs x whole: slab meshes only.
 
 Dispatch of fft_method="auto" follows the tensor's device: the CPU takes
@@ -46,11 +46,22 @@ def _unshards(blocks, mesh):
     return blocks if mesh is not None else blocks[0]
 
 
+def _each(fn, blocks, *more):
+    """[fn(block, *more) per block], None for another process's block."""
+    return [None if b is None else fn(b, *m) for b, *m in zip(blocks, *more)]
+
+
+def _first(blocks):
+    """A block this process holds."""
+    return next(b for b in blocks if b is not None)
+
+
 def _blocks(cfg: Config, mesh):
-    """(y0, ny, x0, nx) of each block (the whole grid without a mesh)."""
+    """(y0, ny, x0, nx) of each block (the whole grid without a mesh; None
+    for another process's block)."""
     if mesh is None:
         return [(0, cfg.grid.ny, 0, cfg.grid.nx)]
-    return [mesh.block(cfg, i) for i in range(mesh.size)]
+    return mesh.each(lambda i: mesh.block(cfg, i))
 
 
 def _xy(fn, blocks, mesh, **kw):
@@ -149,8 +160,9 @@ def _inv_symbols(cfg: Config, blocks, mesh):
     if mesh is None:
         return [_scaled_inv_symbol(cfg, blocks[0].dtype, blocks[0].device,
                                    scale)]
-    return [_scaled_inv_symbol(cfg, b.dtype, b.device, scale, blk)
-            for b, blk in zip(blocks, _blocks(cfg, mesh))]
+    return _each(lambda b, blk: _scaled_inv_symbol(cfg, b.dtype, b.device,
+                                                   scale, blk),
+                 blocks, _blocks(cfg, mesh))
 
 
 def _pin_plates(cfg: Config, phi):
@@ -178,22 +190,22 @@ def poisson_phi_from_rhs(cfg: Config, rhs, mesh=None, rhs_hx: bool = False):
     if rhs_hx:
         _x_whole(mesh, "rhs_hx")
     blocks = _shards(rhs, mesh)
-    dtype = blocks[0].dtype
+    dtype = _first(blocks).dtype
     inv = _inv_symbols(cfg, blocks, mesh)
-    s_z = [dst_z(b) for b in blocks]
-    mul = lambda a: [x * m for x, m in zip(a, inv)]
+    s_z = _each(dst_z, blocks)
+    mul = lambda a: _each(torch.mul, a, inv)
     if rhs_hx:
-        back = [hartley_x_local(b)
-                for b in _xy(hartley_y, mul(_xy(hartley_y, s_z, mesh)), mesh)]
+        back = _each(hartley_x_local,
+                     _xy(hartley_y, mul(_xy(hartley_y, s_z, mesh)), mesh))
     elif cfg.run.fft_method != "fft":
         back = _xy(hartley2_xy, mul(_xy(hartley2_xy, s_z, mesh)), mesh)
     else:
-        back = [b.real.to(dtype) * float(g.ny * g.nx) for b in
-                _xy(fft2_xy, mul(_xy(fft2_xy, s_z, mesh)), mesh,
-                    inverse=True)]
-    return _unshards([_pin_plates(cfg, dst_z_padded(b)
-                                  + lifting_profile(cfg, dtype, b.device))
-                      for b in back], mesh)
+        back = _each(lambda b: b.real.to(dtype) * float(g.ny * g.nx),
+                     _xy(fft2_xy, mul(_xy(fft2_xy, s_z, mesh)), mesh,
+                         inverse=True))
+    return _unshards(_each(lambda b: _pin_plates(
+        cfg, dst_z_padded(b) + lifting_profile(cfg, dtype, b.device)), back),
+        mesh)
 
 
 def poisson_psi_hx_from_rhs(cfg: Config, rhs_hx, mesh=None):
@@ -208,10 +220,8 @@ def poisson_psi_hx_from_rhs(cfg: Config, rhs_hx, mesh=None):
         raise ValueError("psi_hx solve requires the Hartley (matmul) path")
     blocks = _shards(rhs_hx, mesh)
     inv = _inv_symbols(cfg, blocks, mesh)
-    spec = [x * m for x, m in
-            zip(_xy(hartley_y, [dst_z(b) for b in blocks], mesh), inv)]
-    return _unshards([dst_z_padded(b) for b in _xy(hartley_y, spec, mesh)],
-                     mesh)
+    spec = _each(torch.mul, _xy(hartley_y, _each(dst_z, blocks), mesh), inv)
+    return _unshards(_each(dst_z_padded, _xy(hartley_y, spec, mesh)), mesh)
 
 
 def phi_from_psi_hx(cfg: Config, psi, mesh=None):
@@ -221,9 +231,8 @@ def phi_from_psi_hx(cfg: Config, psi, mesh=None):
     from ..parallel.fft import hartley_x_local
 
     _x_whole(mesh, "the psi_hx codec")
-    return _unshards([hartley_x_local(s)
-                      + lifting_profile(cfg, s.dtype, s.device)
-                      for s in _shards(psi, mesh)], mesh)
+    return _unshards(_each(lambda s: hartley_x_local(s) + lifting_profile(
+        cfg, s.dtype, s.device), _shards(psi, mesh)), mesh)
 
 
 def psi_hx_from_phi(cfg: Config, phi, mesh=None):
@@ -232,16 +241,15 @@ def psi_hx_from_phi(cfg: Config, phi, mesh=None):
     from ..parallel.fft import hartley_x_local
 
     _x_whole(mesh, "the psi_hx codec")
-    return _unshards([hartley_x_local(s - lifting_profile(cfg, s.dtype,
-                                                          s.device))
-                      * (1.0 / cfg.grid.nx)
-                      for s in _shards(phi, mesh)], mesh)
+    return _unshards(_each(lambda s: hartley_x_local(
+        s - lifting_profile(cfg, s.dtype, s.device)) * (1.0 / cfg.grid.nx),
+        _shards(phi, mesh)), mesh)
 
 
 def poisson_solve_dst(cfg: Config, charge, chargen, mesh=None):
     """Reduced solve from the ion concentrations."""
-    rhs = [charge_rhs(cfg, c, cn) for c, cn in
-           zip(_shards(charge, mesh), _shards(chargen, mesh))]
+    rhs = _each(lambda c, cn: charge_rhs(cfg, c, cn), _shards(charge, mesh),
+                _shards(chargen, mesh))
     return poisson_phi_from_rhs(cfg, _unshards(rhs, mesh), mesh)
 
 
@@ -251,12 +259,13 @@ def _poisson_phi_ext(cfg: Config, charge, chargen, mesh=None):
 
     g = cfg.grid
     cs = _shards(charge, mesh)
-    dtype = cs[0].dtype
-    ext = [odd_extension(cfg, c, cn)
-           for c, cn in zip(cs, _shards(chargen, mesh))]
+    dtype = _first(cs).dtype
+    ext = _each(lambda c, cn: odd_extension(cfg, c, cn), cs,
+                _shards(chargen, mesh))
     mu = minus_laplacian_symbol(cfg)
-    out = []
-    for s, (y0, nyl, x0, nxl) in zip(_xy(fft3, ext, mesh), _blocks(cfg, mesh)):
+
+    def divide(s, block):
+        y0, nyl, x0, nxl = block
         m = torch.as_tensor(mu[:, y0:y0 + nyl, x0:x0 + nxl]).to(
             device=s.device, dtype=dtype)
         s = s / (-m)
@@ -266,11 +275,14 @@ def _poisson_phi_ext(cfg: Config, charge, chargen, mesh=None):
         # explicitly.
         if y0 == 0 and x0 == 0:
             s[0, 0, 0] = 0.0
-        out.append(s)
+        return s
+
+    out = _each(divide, _xy(fft3, ext, mesh), _blocks(cfg, mesh))
     # .real is a strided view of the complex result: copied to a
     # contiguous phi, which the kernels take
-    return _unshards([_pin_plates(cfg, p[: g.nz].real.to(dtype).contiguous())
-                      for p in _xy(fft3, out, mesh, inverse=True)], mesh)
+    return _unshards(_each(lambda p: _pin_plates(
+        cfg, p[: g.nz].real.to(dtype).contiguous()),
+        _xy(fft3, out, mesh, inverse=True)), mesh)
 
 
 def poisson_phi(cfg: Config, charge, chargen, mesh=None):
@@ -278,7 +290,7 @@ def poisson_phi(cfg: Config, charge, chargen, mesh=None):
     the reduced DST/Hartley form; "auto": the FFT form for CPU tensors, the
     reduced form on the card.  With `mesh`, lists of shards."""
     m = cfg.run.fft_method
-    cpu = _shards(charge, mesh)[0].device.type == "cpu"
+    cpu = _first(_shards(charge, mesh)).device.type == "cpu"
     if m == "fft" or (m == "auto" and cpu):
         return _poisson_phi_ext(cfg, charge, chargen, mesh)
     return poisson_solve_dst(cfg, charge, chargen, mesh)

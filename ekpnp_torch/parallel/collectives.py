@@ -1,9 +1,10 @@
-"""The two collectives of a sharded run, over the shards of one process.
+"""The collectives of a sharded run, within one process or across the
+processes of a distributed one.
 
 A sharded field is a list of per-shard tensors in mesh order (row-major
-over the mesh axes, parallel/mesh.py), each on its mesh device.  Shards
-talk only through these two operations, the counterparts of what the JAX
-package's sharded step uses:
+over the mesh axes, parallel/mesh.py), each on its mesh device, None where
+another process owns the shard.  Shards talk only through these
+operations, the counterparts of what the JAX package's sharded step uses:
 
   ring_shift(mesh, shards, axis, shift)  every shard receives the tensor of
       its neighbour `shift` places back along `axis` (periodic):
@@ -17,15 +18,27 @@ package's sharded step uses:
       (ekpnp/parallel/fft.py).  An extent that n does not divide is cut as
       `torch.tensor_split` cuts it (the first pieces one longer), as XLA
       pads an uneven sharding: the reference's 50-wide x axis over 4
-      slabs.
+      slabs;
+  gather_rows, to_rank0  the per-shard partials of the diagnostics on
+      every process, a whole field on rank 0 (the tests' and the smoke's
+      gathers).
 
 `axis` is a mesh axis name, "y" or "x", or ("y", "x") for the whole mesh
-taken as one ring in mesh order.  Both are slicing, `torch.cat` and
-`tensor.to(device, non_blocking=True)`: a peer copy between cards, nothing
-on one device (a ring_shift passes a shard that stays on its device on as
-it is, so callers never write into a received tensor).  Nothing here is a kernel of
-the port.  A process-group backend (torch.distributed) can take their
-place later without touching the callers.
+taken as one ring in mesh order.  A pair of shards of one process moves by
+slicing, `torch.cat` and `tensor.to(device, non_blocking=True)`: a peer
+copy between cards, nothing on one device (a ring_shift passes a shard that
+stays on its device on as it is, so callers never write into a received
+tensor).  A pair that crosses processes moves by `torch.distributed`
+point-to-point messages over the default process group (NCCL between
+cards, Gloo on the CPU): every process walks the same global list of pairs
+(group, then ring position), so both ends issue a message in the same
+order (NCCL matches by order) and give it the same tag, dst * size + src
+(Gloo matches by tag), and one call's messages go out as one
+`batch_isend_irecv`.  Receive buffers are shaped from the mesh, without a
+round trip: every shard's tensor has the receiving shard's shape except
+where `tensor_split` cut it.  Received tensors are ready on the current
+stream when a call returns (`Work.wait`).  Nothing here is a kernel of
+the port.
 """
 from __future__ import annotations
 
@@ -46,28 +59,141 @@ def _groups(mesh, axis):
     raise ValueError(f"unknown mesh axis {axis!r}")
 
 
+def _sizes(extent: int, n: int):
+    """The piece extents of `torch.tensor_split(n)` of `extent`."""
+    q, r = divmod(extent, n)
+    return [q + 1] * r + [q] * (n - r)
+
+
+def _wire(t):
+    """A tensor as it travels: complex as its real pairs (NCCL has no
+    complex type)."""
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+class _Messages:
+    """The cross-process messages of one call, in the global pair order;
+    `run` sends them all and waits."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.ops = []
+
+    def pair(self, src: int, dst: int, send=None, recv=None):
+        """The move of shard src's `send` (when src is here) into shard
+        dst's buffer `recv` (when dst is here) across processes."""
+        import torch.distributed as dist
+
+        tag = dst * self.mesh.size + src
+        if send is not None:
+            self.ops.append(dist.P2POp(dist.isend, _wire(send.contiguous()),
+                                       self.mesh.owner(dst), tag=tag))
+        if recv is not None:
+            self.ops.append(dist.P2POp(dist.irecv, _wire(recv),
+                                       self.mesh.owner(src), tag=tag))
+        return recv
+
+    def run(self):
+        import torch.distributed as dist
+
+        if self.ops:
+            for work in dist.batch_isend_irecv(self.ops):
+                work.wait()
+        self.ops = []
+
+
 def ring_shift(mesh, shards, axis, shift: int):
     """shards[i] of the result is the shard `shift` places before i along
     `axis` (periodic), on shard i's device."""
     out = [None] * len(shards)
+    msgs = _Messages(mesh)
     for group in _groups(mesh, axis):
         n = len(group)
         for k, i in enumerate(group):
-            src = shards[group[(k - shift) % n]]
-            out[i] = src.to(mesh.device(i), non_blocking=True)
+            j = group[(k - shift) % n]
+            here_i, here_j = mesh.is_local(i), mesh.is_local(j)
+            if here_i and here_j:
+                out[i] = shards[j].to(mesh.device(i), non_blocking=True)
+            elif here_i:
+                out[i] = msgs.pair(j, i, recv=torch.empty_like(shards[i]))
+            elif here_j:
+                msgs.pair(j, i, send=shards[j])
+    msgs.run()
     return out
 
 
-def all_to_all(mesh, shards, axis, split_axis: int, cat_axis: int):
+def all_to_all(mesh, shards, axis, split_axis: int, cat_axis: int,
+               cat_extent: int = None):
     """Within each group along `axis`: shard j cuts its tensor into n
     pieces along `split_axis` (equal up to one, `torch.tensor_split`);
-    shard i gets piece i of every j, joined along `cat_axis`."""
+    shard i gets piece i of every j, joined along `cat_axis`.
+
+    cat_extent: the joined extent along `cat_axis` where the group's
+    tensors differ along it (the way back from an uneven cut: shard j then
+    holds `tensor_split` piece j of that extent); by default every shard's
+    tensor has the receiving shard's extent there."""
     out = [None] * len(shards)
+    msgs = _Messages(mesh)
+    parts = {}
     for group in _groups(mesh, axis):
         n = len(group)
-        pieces = [shards[j].tensor_split(n, dim=split_axis) for j in group]
+        pieces = {j: shards[j].tensor_split(n, dim=split_axis)
+                  for j in group if mesh.is_local(j)}
         for k, i in enumerate(group):
-            dev = mesh.device(i)
-            out[i] = torch.cat([p[k].to(dev, non_blocking=True)
-                                for p in pieces], cat_axis)
+            here_i = mesh.is_local(i)
+            if here_i:
+                like = shards[i]
+                shape = list(like.shape)
+                shape[split_axis] = _sizes(shape[split_axis], n)[k]
+                cat = (_sizes(cat_extent, n) if cat_extent is not None
+                       else [shape[cat_axis]] * n)
+                parts[i] = []
+            for m, j in enumerate(group):
+                here_j = j in pieces
+                if here_i and here_j:
+                    parts[i].append(pieces[j][k].to(mesh.device(i),
+                                                    non_blocking=True))
+                elif here_i:
+                    shape[cat_axis] = cat[m]
+                    parts[i].append(msgs.pair(j, i,
+                                              recv=like.new_empty(shape)))
+                elif here_j:
+                    msgs.pair(j, i, send=pieces[j][k])
+    msgs.run()
+    for i, p in parts.items():
+        out[i] = torch.cat(p, cat_axis)
     return out
+
+
+def gather_rows(mesh, rows):
+    """rows: (L, ...) with one row per shard of this process, in mesh order.
+    Returns (size, ...): every shard's row on every process, in mesh order
+    (an all-gather; one process: `rows` itself)."""
+    if mesh.world == 1:
+        return rows
+    import torch.distributed as dist
+
+    rows = rows.contiguous()
+    out = [torch.empty_like(rows) for _ in range(mesh.world)]
+    dist.all_gather(out, rows)
+    return torch.cat(out)
+
+
+def to_rank0(mesh, shards):
+    """Every shard's tensor (equal shapes) in mesh order on rank 0, on the
+    device of its first shard; None on the other ranks.  One process:
+    `shards` itself."""
+    if mesh.world == 1:
+        return shards
+    out = list(shards)
+    msgs = _Messages(mesh)
+    like = shards[mesh.local[0]]
+    for i in range(mesh.size):
+        if mesh.owner(i) == 0:
+            continue
+        if mesh.rank == 0:
+            out[i] = msgs.pair(i, 0, recv=torch.empty_like(like))
+        elif mesh.is_local(i):
+            msgs.pair(i, 0, send=shards[i])
+    msgs.run()
+    return out if mesh.rank == 0 else None

@@ -17,7 +17,8 @@ and these are their plain versions.
 
 Distributed forms: given a mesh (parallel/mesh.py), `fft3`, `fft2_xy`,
 `hartley2_xy` and `hartley_y` take and return lists of per-shard blocks in
-the state's layout (z whole, y and x cut as the mesh cuts them).  Each 1-D
+the state's layout (z whole, y and x cut as the mesh cuts them; None for
+another process's block).  Each 1-D
 stage runs on an axis that is whole on every shard, and all-to-all
 repartitions (parallel/collectives.py) move the cut between stages, in the
 JAX package's stage order:
@@ -60,34 +61,43 @@ def _check(extent: int, n: int, axis, what: str):
 
 
 def _local(fn, blocks, axis):
-    return [fn(b, axis) for b in blocks]
+    return [None if b is None else fn(b, axis) for b in blocks]
+
+
+def _extents(blocks, mesh):
+    """(NY_local, NX) of the blocks: the joined extents of the way back
+    from a cut that may be uneven (all_to_all's cat_extent)."""
+    b = blocks[mesh.local[0]]
+    return b.shape[1], b.shape[2] * mesh.grid[1]
 
 
 def _xy_stages(blocks, mesh, stage):
     """stage(block, axis) along x, then y, with the mesh's repartitions
     between (the structure of fft2_xy / hartley2_xy)."""
+    nyl, nx = _extents(blocks, mesh)
     if not mesh.pencil:
         a = _local(stage, blocks, 2)                    # x whole
         a = all_to_all(mesh, a, "y", 2, 1)              # y -> x
         a = _local(stage, a, 1)                         # y whole
-        return all_to_all(mesh, a, "y", 1, 2)
+        return all_to_all(mesh, a, "y", 1, 2, nx)
     a = all_to_all(mesh, blocks, "x", 1, 2)             # (., (y,x), .)
     a = _local(stage, a, 2)                             # x whole
     a = all_to_all(mesh, a, ("y", "x"), 2, 1)           # (., ., (y,x))
     a = _local(stage, a, 1)                             # y whole
-    a = all_to_all(mesh, a, ("y", "x"), 1, 2)           # (., (y,x), .)
-    return all_to_all(mesh, a, "x", 2, 1)               # (., y, x)
+    a = all_to_all(mesh, a, ("y", "x"), 1, 2, nx)       # (., (y,x), .)
+    return all_to_all(mesh, a, "x", 2, 1, nyl)          # (., y, x)
 
 
 def _y_stage(blocks, mesh, stage):
     """stage(block, 1) alone, on a mesh (the y half of _xy_stages)."""
+    nyl, nx = _extents(blocks, mesh)
     if not mesh.pencil:
         a = all_to_all(mesh, blocks, "y", 2, 1)
-        return all_to_all(mesh, _local(stage, a, 1), "y", 1, 2)
+        return all_to_all(mesh, _local(stage, a, 1), "y", 1, 2, nx)
     a = all_to_all(mesh, blocks, "x", 1, 2)
     a = all_to_all(mesh, a, ("y", "x"), 2, 1)
-    a = all_to_all(mesh, _local(stage, a, 1), ("y", "x"), 1, 2)
-    return all_to_all(mesh, a, "x", 2, 1)
+    a = all_to_all(mesh, _local(stage, a, 1), ("y", "x"), 1, 2, nx)
+    return all_to_all(mesh, a, "x", 2, 1, nyl)
 
 
 def _fft1(a, axis: int, inverse: bool = False):
@@ -102,7 +112,7 @@ def fft3(a, mesh=None, inverse: bool = False):
                                                                dim=(0, 1, 2))
     stage = lambda b, ax: _fft1(b, ax, inverse)
     ny, nx = mesh.grid
-    ne, nyl, nxl = a[0].shape
+    ne, nyl, nxl = a[mesh.local[0]].shape
     _check(ne, ny, "y", "extended z")
     if not mesh.pencil:
         b = _local(stage, _local(stage, a, 0), 2)       # z, x whole

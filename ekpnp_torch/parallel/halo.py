@@ -69,7 +69,7 @@ from ..ops.poisson import (PhiHalo, efield, phi_from_psi_hx,
                            psi_hx_from_phi)
 from ..state import State
 from .collectives import ring_shift
-from .mesh import Mesh, local_cfg, shard
+from .mesh import Mesh, fields, local_cfg, shard
 
 
 def _lattices(cfg: Config):
@@ -102,14 +102,14 @@ def phi_halos(mesh: Mesh, phi):
     """The phi (or psi_hx) halo of every shard: rows y = -1 and y = NYl
     from the y-neighbours, and on a pencil columns x = -1 and x = NXl from
     the x-neighbours."""
-    edge = lambda sel: [sel(p).contiguous() for p in phi]
+    edge = lambda sel: mesh.each(lambda i: sel(phi[i]).contiguous())
     ylo = ring_shift(mesh, edge(lambda p: p[:, -1]), "y", 1)
     yhi = ring_shift(mesh, edge(lambda p: p[:, 0]), "y", -1)
     if not mesh.pencil:
-        return [PhiHalo(lo, hi) for lo, hi in zip(ylo, yhi)]
+        return mesh.each(lambda i: PhiHalo(ylo[i], yhi[i]))
     xlo = ring_shift(mesh, edge(lambda p: p[:, :, -1]), "x", 1)
     xhi = ring_shift(mesh, edge(lambda p: p[:, :, 0]), "x", -1)
-    return [PhiHalo(*h) for h in zip(ylo, yhi, xlo, xhi)]
+    return mesh.each(lambda i: PhiHalo(ylo[i], yhi[i], xlo[i], xhi[i]))
 
 
 def _exchange(cfg_l: Config, mesh: Mesh, posts, axis: str, pick):
@@ -119,19 +119,20 @@ def _exchange(cfg_l: Config, mesh: Mesh, posts, axis: str, pick):
     after along mesh axis `axis`; None for an inactive field."""
     per_field = []
     for k, lat in enumerate(_lattices(cfg_l)):
-        if posts[0][k] is None:
+        if posts[mesh.local[0]][k] is None:
             per_field.append([None] * mesh.size)
             continue
-        cut = lambda edge, sign: [pick(i, k, lat, edge, sign)
-                                  for i in range(mesh.size)]
+        cut = lambda edge, sign: mesh.each(
+            lambda i: pick(i, k, lat, edge, sign))
         lo = ring_shift(mesh, cut(-1, 1), axis, 1)
         hi = ring_shift(mesh, cut(0, -1), axis, -1)
         per_field.append(list(zip(lo, hi)))
-    return [tuple(f[i] for f in per_field) for i in range(mesh.size)]
+    return mesh.each(lambda i: tuple(f[i] for f in per_field))
 
 
 def post_cols(cfg_l: Config, mesh: Mesh, posts):
-    """posts: per shard (pf, ph, phn, pg) on a pencil.  Returns per shard
+    """posts: per shard (pf, ph, phn, pg) on a pencil (None for another
+    process's shard, here and below).  Returns per shard
     the `cols` argument of its pass: per field (xlo, xhi) = the
     x-neighbours' post-collision columns x = -1 / x = NXl, the directions
     with ex = +1 / -1 only, every z plane (the ions' top plane under
@@ -189,15 +190,16 @@ def fix_x_columns(cfg_l: Config, mesh: Mesh, outs) -> None:
     nz = cfg_l.grid.nz
     zg = cfg_l.physics.charge_bc == "zerograd-top"
     for k, lat in enumerate(_lattices(cfg_l)):
-        if outs[0][k] is None:
+        if outs[mesh.local[0]][k] is None:
             continue
         zs = (slice(None) if k == 0 else
               slice(1, nz) if zg and k in (1, 2) else slice(1, nz - 1))
         for sign, lane, shift in ((1, 0, 1), (-1, -1, -1)):
-            idx = [_dirs(lat, 0, sign, o[k].device) for o in outs]
-            cols = [o[k][i, zs, :, lane] for o, i in zip(outs, idx)]
-            for o, i, c in zip(outs, idx, ring_shift(mesh, cols, "x", shift)):
-                o[k][i, zs, :, lane] = c
+            idx = mesh.each(lambda i: _dirs(lat, 0, sign, outs[i][k].device))
+            cols = mesh.each(lambda i: outs[i][k][idx[i], zs, :, lane])
+            got = ring_shift(mesh, cols, "x", shift)
+            for i in mesh.local:
+                outs[i][k][idx[i], zs, :, lane] = got[i]
 
 
 @lru_cache(maxsize=None)
@@ -249,13 +251,13 @@ def step_halo(cfg: Config, mesh: Mesh, state: State, phi_hx: bool = False,
     # pencil shards take the plain RHS: the x-Hartley forms need x whole
     hx = fs.resolve_hartley_x(cfg_l, False if mesh.pencil else None, phi_hx)
     halos = phi_halos(mesh, state.phi) if ek else [None] * mesh.size
-    posts, rhs = [], []
-    for i in range(mesh.size):
+    posts, rhs = [None] * mesh.size, [None] * mesh.size
+    for i in mesh.local:
         st = shard(state, i)
-        *pc, r = fs.collide(cfg_l, st.f, st.h, st.hn, st.g, st.phi,
-                            hartley_x=hx, phi_hx=phi_hx, phi_halo=halos[i])
-        posts.append(tuple(pc))
-        rhs.append(r)
+        *pc, rhs[i] = fs.collide(cfg_l, st.f, st.h, st.hn, st.g, st.phi,
+                                 hartley_x=hx, phi_hx=phi_hx,
+                                 phi_halo=halos[i])
+        posts[i] = tuple(pc)
     if overlap:
         rows, join = _on_side_streams(mesh, lambda: post_rows(cfg_l, mesh,
                                                               posts))
@@ -266,13 +268,11 @@ def step_halo(cfg: Config, mesh: Mesh, state: State, phi_hx: bool = False,
         phi = (poisson_psi_hx_from_rhs(cfg, rhs, mesh) if phi_hx else
                poisson_phi_from_rhs(cfg, rhs, mesh, rhs_hx=hx))
     join()
-    outs = [fs.stream_bc(cfg_l, *posts[i], rows=rows[i])
-            for i in range(mesh.size)]
+    outs = mesh.each(lambda i: fs.stream_bc(cfg_l, *posts[i], rows=rows[i]))
     if mesh.pencil:
         fix_x_columns(cfg_l, mesh, outs)
-    lists = [None if outs[0][k] is None else [o[k] for o in outs]
-             for k in range(4)]
-    return State(*lists, phi=phi, t=state.t + p.dt(cfg.grid.dx))
+    return State(*(fields(mesh, outs, k) for k in range(4)), phi=phi,
+                 t=state.t + p.dt(cfg.grid.dx))
 
 
 def make_halo_multi_step(cfg: Config, mesh: Mesh, n: int,
@@ -310,7 +310,7 @@ def make_halo_multi_step(cfg: Config, mesh: Mesh, n: int,
     # pencil shards take the plain RHS: the x-Hartley forms need x whole
     rhs_hx = fs.resolve_hartley_x(cfg_l, False if mesh.pencil else None, hx)
     form = dict(hartley_x=rhs_hx, phi_hx=hx)
-    shards = range(mesh.size)
+    each = mesh.each
 
     def exchange(posts, last: bool):
         """The edges of the post sets (per shard (rows, cols)) and the join
@@ -329,16 +329,14 @@ def make_halo_multi_step(cfg: Config, mesh: Mesh, n: int,
         if hx:
             state = state._replace(phi=psi_hx_from_phi(cfg, state.phi, mesh))
         phi, t = state.phi, state.t
-        spare = [tuple(shard(state, i)[:4]) for i in shards]
+        spare = each(lambda i: tuple(shard(state, i)[:4]))
         halos = phi_halos(mesh, phi) if ek else [None] * mesh.size
-        posts, rhs = [], []
-        for i in shards:
-            *pc, r = fs.collide(cfg_l, *spare[i], None if phi is None else phi[i],
-                                post=fs._empty_like_fields(cfg_l, spare[i][0]),
-                                phi_halo=halos[i], **form)
-            posts.append(tuple(pc))
-            rhs.append(r)
-        del state
+        outs = each(lambda i: fs.collide(
+            cfg_l, *spare[i], None if phi is None else phi[i],
+            post=fs._empty_like_fields(cfg_l, spare[i][0]),
+            phi_halo=halos[i], **form))
+        posts, rhs = each(lambda i: tuple(outs[i][:4])), fields(mesh, outs, 4)
+        del state, outs
         for k in range(n):
             last = k == n - 1
             edges, join = exchange(posts, last)
@@ -351,20 +349,18 @@ def make_halo_multi_step(cfg: Config, mesh: Mesh, n: int,
             join()
             if last:
                 break
-            nxt = [fs.fused_pass(cfg_l, *posts[i],
-                                 None if phi is None else phi[i],
-                                 out=spare[i], rows=edges[i][0],
-                                 cols=edges[i][1], phi_halo=halos[i], **form)
-                   for i in shards]
-            spare, posts = posts, [tuple(x[:4]) for x in nxt]
-            rhs = [x[4] for x in nxt]
-        outs = [fs.stream_bc(cfg_l, *posts[i], out=spare[i],
-                             rows=edges[i][0]) for i in shards]
+            nxt = each(lambda i: fs.fused_pass(
+                cfg_l, *posts[i], None if phi is None else phi[i],
+                out=spare[i], rows=edges[i][0], cols=edges[i][1],
+                phi_halo=halos[i], **form))
+            spare, posts = posts, each(lambda i: tuple(nxt[i][:4]))
+            rhs = fields(mesh, nxt, 4)
+        outs = each(lambda i: fs.stream_bc(cfg_l, *posts[i], out=spare[i],
+                                           rows=edges[i][0]))
         if mesh.pencil:
             fix_x_columns(cfg_l, mesh, outs)
-        lists = [None if outs[0][k] is None else [o[k] for o in outs]
-                 for k in range(4)]
-        state = State(*lists, phi=phi, t=t)
+        state = State(*(fields(mesh, outs, k) for k in range(4)), phi=phi,
+                      t=t)
         if hx:
             state = state._replace(phi=phi_from_psi_hx(cfg, state.phi, mesh))
         return state
@@ -373,16 +369,17 @@ def make_halo_multi_step(cfg: Config, mesh: Mesh, n: int,
 
 
 def shard_macros(cfg: Config, mesh: Mesh, state: State):
-    """(Macro, E) of every shard of a sharded state, E from the phi halo
-    (the diagnostics' and the dumps' fields)."""
+    """(Macro, E) of every shard of a sharded state (None for another
+    process's), E from the phi halo (the diagnostics' and the dumps'
+    fields)."""
     from ..ops.collide import compute_macro
 
     cfg_l = local_cfg(cfg, mesh)
     ek = cfg.physics.enable_ek
     halos = phi_halos(mesh, state.phi) if ek else [None] * mesh.size
-    out = []
-    for i in range(mesh.size):
+
+    def one(i):
         st = shard(state, i)
         E = efield(cfg_l, st.phi, halos[i]) if ek else None
-        out.append((compute_macro(cfg_l, st, E=E)[0], E))
-    return out
+        return compute_macro(cfg_l, st, E=E)[0], E
+    return mesh.each(one)

@@ -9,12 +9,17 @@ z is never cut: it carries the wall physics and the DST, so every wall
 update stays on its shard.
 
 One process drives every shard, as `ekpnp run --mesh` drives every local
-device.  A `Mesh` holds one torch device per shard, and a device may appear
-more than once: several shards on one device (the CPU tests put 4 shards
-in one process, as the JAX tests use 8 virtual CPU devices; the smoke puts
-4 on its one card).  A sharded field is a list of per-shard tensors in mesh
-order (row-major over ("y", "x")); a sharded `State` holds such lists in
-its field slots and `t` as one 0-d tensor on the first shard's device.
+device, or (`run --distributed`) each of `world` processes drives its own
+contiguous block of shards in mesh order: shard i belongs to process
+i // (size // world), as the JAX package's global mesh orders its devices
+by process.  A `Mesh` holds one torch device per shard, and a device may
+appear more than once: several shards on one device (the CPU tests put 4
+shards in one process, as the JAX tests use 8 virtual CPU devices; the
+smoke puts 4 on its one card).  A sharded field is a list of per-shard
+tensors in mesh order (row-major over ("y", "x")), with None where
+another process owns the shard (`Mesh.each`); a sharded `State` holds
+such lists in its field slots and `t` as one 0-d tensor on the first
+local shard's device (every process holds the same t).
 
 The TPU's shard rules (y-slabs of 8 rows, pencil x-shards of whole
 128-lane tiles, parallel/halo.py supports_halo_step) are tiling rules of
@@ -46,17 +51,43 @@ def _indexed(d: torch.device) -> torch.device:
 
 class Mesh:
     """A grid of torch devices with axes ("y",) (a slab: grid (n, 1)) or
-    ("y", "x") (a pencil): one shard per entry, in row-major order."""
+    ("y", "x") (a pencil): one shard per entry, in row-major order.
 
-    def __init__(self, devices: Sequence, grid, pencil: bool):
+    rank, world: this process and the process count of a distributed run
+    (the default process group's, which must be initialised: NCCL for a
+    mesh on cards, Gloo on the CPU).  The devices of another process's
+    shards are never used here."""
+
+    def __init__(self, devices: Sequence, grid, pencil: bool, rank: int = 0,
+                 world: int = 1):
         devices = [_indexed(torch.device(d)) for d in devices]
         ny, nx = grid
         if ny * nx != len(devices) or (nx != 1 and not pencil):
             raise ValueError(f"mesh {grid} does not hold {len(devices)} "
                              f"devices")
+        if len(devices) % world or not 0 <= rank < world:
+            raise ValueError(f"{len(devices)} shards cannot be dealt to "
+                             f"{world} processes (rank {rank})")
+        if world > 1:
+            _check_process_group(devices[0], rank, world)
         self.devices = devices
         self.grid = (ny, nx)
         self.pencil = pencil
+        self.rank, self.world = rank, world
+        per = len(devices) // world
+        self.local = list(range(rank * per, (rank + 1) * per))
+
+    def owner(self, i: int) -> int:
+        """The process that holds shard i."""
+        return i // (self.size // self.world)
+
+    def is_local(self, i: int) -> bool:
+        return self.owner(i) == self.rank
+
+    def each(self, fn):
+        """[fn(i) for this process's shards, None for the others], in mesh
+        order: a sharded field."""
+        return [fn(i) if self.is_local(i) else None for i in range(self.size)]
 
     @property
     def axis_names(self):
@@ -84,26 +115,57 @@ class Mesh:
         return yi * nyl, nyl, xi * nxl, nxl
 
     def __repr__(self):
-        return f"Mesh({self.shape}, {[str(d) for d in self.devices]})"
+        where = f", rank {self.rank} of {self.world}" if self.world > 1 else ""
+        return f"Mesh({self.shape}, {[str(d) for d in self.devices]}{where})"
 
 
-def make_mesh(devices: Sequence, pencil: bool = False) -> Mesh:
+def _check_process_group(device: torch.device, rank: int, world: int):
+    """A distributed mesh needs the default process group of its rank and
+    world, on the backend of its devices: NCCL for cards, Gloo for the
+    CPU (no other, and no switch between them)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh over several processes needs "
+                           "torch.distributed.init_process_group first")
+    if (dist.get_rank(), dist.get_world_size()) != (rank, world):
+        raise ValueError(f"mesh rank {rank} of {world}, process group rank "
+                         f"{dist.get_rank()} of {dist.get_world_size()}")
+    want = "nccl" if device.type == "cuda" else "gloo"
+    if dist.get_backend() != want:
+        raise ValueError(f"a mesh on {device.type} runs over {want}, the "
+                         f"process group is {dist.get_backend()}")
+
+
+def make_mesh(devices: Sequence, pencil: bool = False, rank: int = 0,
+              world: int = 1) -> Mesh:
     """A slab mesh over `devices`, or a pencil with the near-square
-    factorisation (y extent the largest divisor <= sqrt(n))."""
+    factorisation (y extent the largest divisor <= sqrt(n)); rank and world
+    of a distributed run (`Mesh`)."""
     n = len(devices)
     if not pencil:
-        return Mesh(devices, (n, 1), False)
+        return Mesh(devices, (n, 1), False, rank, world)
     yf = math.isqrt(n)
     while n % yf:
         yf -= 1
-    return Mesh(devices, (yf, n // yf), True)
+    return Mesh(devices, (yf, n // yf), True, rank, world)
 
 
-def mesh_devices(device: torch.device, n: Optional[int] = None):
-    """n shard devices placed round-robin over the devices of `device`'s
-    kind (every card for "cuda"; the one CPU for "cpu"); n defaults to the
-    number of such devices."""
+def mesh_devices(device: torch.device, n: Optional[int] = None,
+                 world: Optional[int] = None):
+    """n shard devices.  One process (world None): placed round-robin over
+    the devices of `device`'s kind (every card for "cuda"; the one CPU for
+    "cpu"), n defaulting to the number of such devices.  One of `world`
+    processes of a distributed run: every shard on this process's device
+    (its current card, stacked when it holds several), n a multiple of
+    `world` defaulting to one shard per process."""
     device = torch.device(device)
+    if world is not None:
+        n = n or world
+        if n % world:
+            raise ValueError(f"{n} shards are not a multiple of the "
+                             f"{world} processes")
+        return [_indexed(device)] * n
     count = torch.cuda.device_count() if device.type == "cuda" else 1
     n = n or count
     if device.type == "cuda":
@@ -131,18 +193,23 @@ def local_cfg(cfg: Config, mesh: Mesh) -> Config:
 
 def shard_field(cfg: Config, mesh: Mesh, a):
     """Per-shard copies of a global field (..., NY, NX), each on its
-    device."""
-    out = []
-    for i in range(mesh.size):
+    device (this process's shards; None for the others)."""
+    def cut(i):
         y0, nyl, x0, nxl = mesh.block(cfg, i)
-        out.append(a[..., y0:y0 + nyl, x0:x0 + nxl].to(
-            mesh.device(i), copy=True, memory_format=torch.contiguous_format))
-    return out
+        return a[..., y0:y0 + nyl, x0:x0 + nxl].to(
+            mesh.device(i), copy=True, memory_format=torch.contiguous_format)
+    return mesh.each(cut)
 
 
 def gather_field(mesh: Mesh, shards, device=None):
     """The global field from its shards (exact: concatenation), on
-    `device` (default: the first shard's)."""
+    `device` (default: the first local shard's); over several processes on
+    rank 0 alone (None on the others)."""
+    from .collectives import to_rank0
+
+    shards = to_rank0(mesh, shards)
+    if shards is None:
+        return None
     device = device or shards[0].device
     ny, nx = mesh.grid
     rows = [torch.cat([shards[yi * nx + xi].to(device) for xi in range(nx)],
@@ -151,18 +218,30 @@ def gather_field(mesh: Mesh, shards, device=None):
 
 
 def shard_state(cfg: Config, mesh: Mesh, state: State) -> State:
-    """Place a state onto the mesh (copies; drop the original to free it)."""
+    """Place a state onto the mesh (copies; drop the original to free it);
+    this process's shards only."""
     check_divisibility(cfg, mesh)
     cut = lambda a: None if a is None else shard_field(cfg, mesh, a)
     return State(*(cut(getattr(state, k)) for k in _POPS + ("phi",)),
-                 t=state.t.to(mesh.device(0), copy=True))
+                 t=state.t.to(mesh.device(mesh.local[0]), copy=True))
 
 
-def gather_state(mesh: Mesh, state: State, device=None) -> State:
-    """The unsharded state (exact)."""
+def gather_state(mesh: Mesh, state: State, device=None):
+    """The unsharded state (exact); over several processes on rank 0 alone
+    (None on the others, which must call it too)."""
     join = lambda a: None if a is None else gather_field(mesh, a, device)
-    return State(*(join(getattr(state, k)) for k in _POPS + ("phi",)),
-                 t=state.t.to(device or state.t.device))
+    whole = [join(getattr(state, k)) for k in _POPS + ("phi",)]
+    if mesh.rank != 0:
+        return None
+    return State(*whole, t=state.t.to(device or state.t.device))
+
+
+def fields(mesh: Mesh, per_shard, k: int):
+    """Field k of per-shard tuples (None for another process's shard) as a
+    sharded field, or None where the field is absent."""
+    if per_shard[mesh.local[0]][k] is None:
+        return None
+    return [None if s is None else s[k] for s in per_shard]
 
 
 def shard(state: State, i: int) -> State:
@@ -190,28 +269,29 @@ def make_sharded_step(cfg: Config, mesh: Mesh, perturb: bool = False):
 
     def run(state: State):
         halos = phi_halos(mesh, state.phi) if ek else [None] * mesh.size
-        posts, macros = [], []
-        for i in range(mesh.size):
+
+        def one(i):
             st = shard(state, i)
             y0, _, x0, _ = mesh.block(cfg, i)
             E = efield(cfg_l, st.phi, halos[i]) if ek else None
             post, macro = collide_and_reflect(cfg_l, st, perturb=perturb,
                                               E=E, origin=(y0, x0))
-            posts.append(tuple(post))
-            macros.append(macro)
+            return tuple(post), macro
+
+        pm = mesh.each(one)
+        posts, macros = fields(mesh, pm, 0), fields(mesh, pm, 1)
         rows = post_rows(cfg_l, mesh, posts)
-        outs = [stream_bc_reference(cfg_l, *p, rows=r)
-                for p, r in zip(posts, rows)]
+        outs = mesh.each(lambda i: stream_bc_reference(cfg_l, *posts[i],
+                                                       rows=rows[i]))
         if mesh.pencil:
             fix_x_columns(cfg_l, mesh, outs)
         phi = state.phi
         if ek:
-            phi = poisson_phi(cfg, [m.charge for m in macros],
-                              [m.chargen for m in macros], mesh)
-        lists = lambda seq, k: None if seq[0][k] is None else [s[k] for s in seq]
-        new = State(*(lists(outs, k) for k in range(4)), phi=phi,
+            phi = poisson_phi(cfg, fields(mesh, macros, 2),
+                              fields(mesh, macros, 3), mesh)
+        new = State(*(fields(mesh, outs, k) for k in range(4)), phi=phi,
                     t=state.t + cfg.physics.dt(cfg.grid.dx))
-        macro = Macro(*(lists(macros, k) for k in range(5)))
+        macro = Macro(*(fields(mesh, macros, k) for k in range(5)))
         return new, macro
 
     return run

@@ -5,7 +5,8 @@ Usage:
     python -m ekpnp_torch run <preset> [--steps N] [--set key=value ...]
                               [--precision f32|f64] [--outdir DIR]
                               [--device cuda|cpu]
-                              [--mesh slab|pencil [--mesh-devices N]]
+                              [--mesh slab|pencil [--mesh-devices N]
+                               [--distributed]]
                               [--resume CHECKPOINT] [--checkpoint-full]
                               [--vtk] [--save-scalars] [--profile DIR]
     python -m ekpnp_torch merge <preset> <rundir> [--vtk]
@@ -46,8 +47,28 @@ non-finite state aborts with exit code 2 at the next event or at the end.
 --mesh slab --mesh-devices 4` runs 4 CPU shards and one card can hold
 several; the time loop is the sharded one (parallel/halo.py).  A sharded
 run writes per-shard field dumps (fields_NNNNNN.shards/) in place of
-data.dat and data_end.*; `merge` assembles them (io/fields.py).  Not in
-this port yet: --distributed.
+data.dat and data_end.*; `merge` assembles them (io/fields.py).
+
+--distributed runs the sharded loop over several processes, one global
+mesh, each process launched by `python -m torch.distributed.run` (which
+sets RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT):
+
+    python -m torch.distributed.run --nproc-per-node 4 -m ekpnp_torch \
+        run pod --distributed --mesh slab --set pb_omega=0.02
+
+With --device cuda the processes talk over NCCL, one process per card
+(cuda:LOCAL_RANK; NCCL refuses two on one card), with --device cpu over
+Gloo.  --mesh-devices is the global shard count, a multiple of the
+process count (default: one shard per process); process r holds the r-th
+contiguous block of shards in mesh order, all on its own device.  Every
+process runs the cold start itself and keeps its shards, writes its own
+shards' dumps and checkpoint (shard_<rank>.npz); process 0 alone prints
+and writes series.csv, umax.dat and the directories' meta.json, whose
+contents equal the one-process mesh run's.  The clock runs from a barrier
+after the warm-up to a barrier after the last chunk; the MLUPS is the
+global grid's, the launch counts process 0's.  An error on any process
+ends it non-zero and the others with it (their next message fails, or
+the launcher stops them).
 """
 from __future__ import annotations
 
@@ -206,18 +227,26 @@ def _tensors(x):
 def _warm(advance, state, sizes, dev) -> None:
     """Run a chunk of each size in `sizes` once on a throwaway copy of the
     state, so that the first launch of every kernel form, the solve's
-    library set-up and the allocator's buffers come before the clock.  A
-    chunk of min(n, 2) steps launches every form and buffer a chunk of n
-    does (n = 1: a collide and a stream; n >= 2: a pass between them), so
-    that is what runs.  Skipped on the card where a second state would not
-    fit the free memory."""
+    library set-up, the allocator's buffers and (over several processes)
+    every exchange's first message come before the clock.  A chunk of
+    min(n, 2) steps launches every form and buffer a chunk of n does (n =
+    1: a collide and a stream; n >= 2: a pass between them), so that is
+    what runs.  Skipped on the card where a second state would not fit the
+    free memory (of any process's card: they decide together)."""
     import torch
+    import torch.distributed
 
     if dev.type == "cuda":
         need = {}
         for t in _tensors(state):
             need[t.device] = need.get(t.device, 0) + t.numel() * t.element_size()
-        if any(2.2 * n > torch.cuda.mem_get_info(d)[0] for d, n in need.items()):
+        fits = all(2.2 * n <= torch.cuda.mem_get_info(d)[0]
+                   for d, n in need.items())
+        if torch.distributed.is_initialized():  # every process alike
+            flag = torch.tensor([int(fits)], device=dev)
+            torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MIN)
+            fits = bool(flag)
+        if not fits:
             return
     for n in sorted({min(n, 2) for n in sizes}):
         advance(_tree_map(torch.clone, state), n)
@@ -260,8 +289,67 @@ def _host(x, events):
     return _tree_map(fetch, x)
 
 
-def cmd_run(args):
+def _init_distributed(args):
+    """Join the process group of `run --distributed` from the launcher's
+    environment (env://): NCCL for --device cuda, on card LOCAL_RANK, Gloo
+    for --device cpu; no other backend and no fallback.  Returns (rank,
+    world)."""
+    import datetime
+
     import torch
+    import torch.distributed as dist
+
+    if not args.mesh:
+        raise SystemExit("--distributed needs --mesh slab|pencil")
+    if args.device == "cuda":
+        if not dist.is_nccl_available():
+            raise RuntimeError("--distributed --device cuda runs over NCCL, "
+                               "which this PyTorch build lacks")
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        count = torch.cuda.device_count()
+        if local >= count:
+            raise RuntimeError(
+                f"--distributed --device cuda runs one NCCL process per "
+                f"card: LOCAL_RANK {local}, {count} card(s) visible")
+        torch.cuda.set_device(local)
+    dist.init_process_group("nccl" if args.device == "cuda" else "gloo",
+                            init_method="env://",
+                            timeout=datetime.timedelta(minutes=10))
+    _barrier()  # every process is here; NCCL builds its communicator
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _barrier():
+    import torch
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def cmd_run(args):
+    """`run`; with --distributed as one process of the process group
+    (only process 0 prints), which it leaves on return or on an error."""
+    if not args.distributed:
+        return _run(args, 0, 1)
+    import torch.distributed as dist
+
+    rank, world = _init_distributed(args)
+    try:
+        with contextlib.ExitStack() as stack:
+            if rank:
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _run(args, rank, world)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, rank, world):
+    import torch
+    import torch.distributed
 
     from .device import resolve_device
 
@@ -285,8 +373,10 @@ def cmd_run(args):
 
     mesh = None
     if args.mesh:
-        mesh = pmesh.make_mesh(pmesh.mesh_devices(dev, args.mesh_devices),
-                               pencil=args.mesh == "pencil")
+        mesh = pmesh.make_mesh(
+            pmesh.mesh_devices(dev, args.mesh_devices,
+                               world if args.distributed else None),
+            pencil=args.mesh == "pencil", rank=rank, world=world)
         pmesh.check_divisibility(cfg, mesh)
     devices = sorted(set(mesh.devices if mesh is not None else [dev]), key=str)
 
@@ -304,8 +394,11 @@ def cmd_run(args):
           + ("  fused step: CUDA kernels" if dev.type == "cuda"
              else "  fused step: plain PyTorch"))
     if mesh is not None:
-        print(f"  mesh: {mesh.shape} over {len(devices)} device(s); field "
-              f"dumps per shard (fields_NNNNNN.shards/), run "
+        print(f"  mesh: {mesh.shape} over {len(devices)} device(s)"
+              + (f" in each of {world} processes "
+                 f"({torch.distributed.get_backend()})"
+                 if args.distributed else "")
+              + f"; field dumps per shard (fields_NNNNNN.shards/), run "
               f"`merge {args.preset} <outdir>` for data.dat")
 
     outdir = cfg.run.outdir
@@ -363,9 +456,10 @@ def cmd_run(args):
 
         def snapshot(st):
             parts = shard_macros(cfg, mesh, st)
-            return ([m for m, _ in parts],
-                    [p.clone() for p in st.phi] if ek else None,
-                    [E for _, E in parts] if ek else None, st.t.clone())
+            return (pmesh.fields(mesh, parts, 0),
+                    [None if p is None else p.clone() for p in st.phi]
+                    if ek else None, pmesh.fields(mesh, parts, 1),
+                    st.t.clone())
 
         def advance(st, n):
             if n not in chunk_fns:
@@ -381,7 +475,8 @@ def cmd_run(args):
         t = float(t)
         if mesh is not None:
             save_fields_sharded(os.path.join(outdir, f"fields_{d:06d}.shards"),
-                                cfg, mesh, macro, phi, E, t)
+                                cfg, mesh, macro, phi, E, t, pid=rank,
+                                nprocs=world)
             return
         tecplot.write_zone(files["data"], cfg, macro, phi, E, t,
                            first=kind == "first")
@@ -406,8 +501,11 @@ def cmd_run(args):
         if mesh is None:
             files["data"] = stack.enter_context(
                 open(os.path.join(outdir, "data.dat"), "w"))
-        fumax = stack.enter_context(open(os.path.join(outdir, "umax.dat"), "w"))
-        fcsv = stack.enter_context(open(os.path.join(outdir, "series.csv"), "w"))
+        # the run-level files are process 0's
+        here = lambda name: os.path.join(outdir, name) if rank == 0 \
+            else os.devnull
+        fumax = stack.enter_context(open(here("umax.dat"), "w"))
+        fcsv = stack.enter_context(open(here("series.csv"), "w"))
         fcsv.write("step,t,umax_uz,umax_mag,current,mean_T\n")
         t_zone0 = time.perf_counter()
         dump_now(0, state, "first")
@@ -435,6 +533,8 @@ def cmd_run(args):
         _prepare(dev)
         _warm(advance, state, sizes, dev)
         sync()
+        if args.distributed:
+            _barrier()
 
         aio = _AsyncIO()
         if args.profile:
@@ -478,6 +578,8 @@ def cmd_run(args):
 
                     aio.submit(_dump)
             sync()
+            if args.distributed:
+                _barrier()
             runtime = _clock() - t0
             launches = {k: v for k, v in fs.launches.items() if v}
             if prof is not None:
@@ -504,7 +606,7 @@ def cmd_run(args):
     if args.checkpoint_full:
         if mesh is not None:
             ckpt.save_sharded(os.path.join(outdir, "state_end.ckpt"), cfg,
-                              state, mesh)
+                              state, mesh, pid=rank, nprocs=world)
         else:
             ckpt.save_full_npz(os.path.join(outdir, "state_end.npz"), cfg,
                                state)
@@ -566,7 +668,14 @@ def main(argv=None):
     p_run.add_argument(
         "--mesh-devices", type=int, default=0,
         help="number of shards for --mesh, round-robin over the devices of "
-             "the --device kind (default: one per device)")
+             "the --device kind (default: one per device); with "
+             "--distributed the global count, a multiple of the process "
+             "count (default: one per process)")
+    p_run.add_argument(
+        "--distributed", action="store_true",
+        help="one process of a multi-process run under `python -m "
+             "torch.distributed.run` (env://): NCCL with --device cuda, one "
+             "process per card; Gloo with --device cpu; needs --mesh")
     p_run.add_argument(
         "--resume", default=None,
         help="checkpoint to continue from: a per-shard directory, a full "
