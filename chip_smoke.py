@@ -70,6 +70,19 @@ one card (a mesh may hold a device more than once):
      pb_omega 0.02): 50 steps on slab 4 and 50 on pencil 2x2 (re-sharded
      from the slab run's state), ms/step, MLUPS, per-launch, exchange and
      solve times, launch counts, peak memory;
+  5c. the wider meshes at full width: `ek-pnp-thermal` f32 on pencil 2x3
+     (192x256x257, the one cut NX 256 -> 192: shards 64x128x257 whose 128
+     rows the solve cuts 43/43/42 over x), pencil 2x4 and slab 8
+     (256x256x257: shards 64x128x257 and 256x32x257), each from a seeded
+     make_state state of its size: one chunk of 20 steps after 20
+     one-device steps on the route (the two one after the other), held
+     to them (F32_SHARDED) and to 20 two-launch sharded steps bit for
+     bit, the route's launches counted per chunk and shard; the route's
+     forms timed on shard 0 beside their bounds and held to their plain
+     versions on shard 0 and on the last shard (whose x-neighbours are
+     two different shards on the pencils), exchange, solve, peak memory,
+     ms/step from a second 20-step chunk (the first pays the mesh's first
+     allocations);
   6b. the CLI with `--mesh slab --mesh-devices 4`, 10 steps, then `merge`:
      rc 0, a merged data.dat, finite series;
   6c. `run --distributed` through `python -m torch.distributed.run
@@ -193,6 +206,13 @@ ROWS_PER_COLLIDE = {"collide_kernel.hartley_x": 1, "collide_kernel.phi_hx": 2,
                     "collide_kernel.phi_hx.halo": 4}
 # the sharded meshes of phase 3b: (shards, pencil)
 MESHES = {"slab2": (2, False), "slab4": (4, False), "pencil2x2": (4, True)}
+# phase 5c, ek-pnp-thermal at full width on the meshes of a 6- and an
+# 8-card host: name -> (shards, pencil, preset overrides, the route's
+# collide form).  The uneven pencil's one cut: NX 256 -> 192, the nearest
+# multiple of 3; its shards' 128 rows go 43/43/42 over x in the solve.
+WIDE = {"pencil2x3": (6, True, dict(nx=192), "collide_kernel.shard_x"),
+        "pencil2x4": (8, True, {}, "collide_kernel.shard_x"),
+        "slab8": (8, False, {}, "collide_kernel.phi_hx.halo")}
 # f32 tolerance of a 20-step sharded run against the single-device run
 # (max|d| / max|ref| per field): the distributed solve sums in another
 # order than the single-device one, and the pencil takes the plain-RHS
@@ -240,36 +260,42 @@ def rel_err(a, b):
 
 def make_state(cfg, seed, device):
     """Equilibrium populations of a seeded macroscopic state plus 1e-3
-    relative noise, and phi near `voltage` (numpy, then onto the card)."""
+    relative noise, and phi near `voltage`: the macroscopic fields from
+    numpy, the equilibria (f64) and their noise (a torch.Generator of the
+    same seed) on `device`, then in the config's type.  On the card, so
+    that a 256^3 state takes seconds, not the host's minutes."""
     import numpy as np
     import torch
 
-    from ekpnp_torch.convert import state_from_numpy
+    from ekpnp_torch.device import resolve_device, torch_dtype
     from ekpnp_torch.init import state_from_macro
     from ekpnp_torch.ops.poisson import efield
-    from ekpnp_torch.state import Macro
+    from ekpnp_torch.state import Macro, State
 
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     p = cfg.physics
     shape = cfg.grid.shape
     jit = lambda v, rel: v * (1.0 + rel * rng.standard_normal(shape))
-    t = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64).to(dev)
     z = np.arange(cfg.grid.nz)[:, None, None] / (cfg.grid.nz - 1)
     macro = Macro(rho=t(jit(p.rho0, 1e-4)),
                   u=t(1e-2 * rng.standard_normal((3,) + shape)),
                   charge=t(jit(p.charge0, 0.05)), chargen=t(jit(p.charge0n, 0.05)),
                   temp=t(p.TH * (1.0 - z) + 0.01 * rng.standard_normal(shape)))
     phi = t(jit(p.voltage, 0.05))
-    st = state_from_macro(cfg, macro, phi, efield(cfg, phi), 0.0)
-    arrays = {"t": 0.0}
-    for k in ("f", "h", "hn", "g"):
-        a = getattr(st, k).numpy() if getattr(st, k) is not None else None
-        active = {"f": True, "h": p.enable_ek, "hn": p.enable_ek and p.two_species,
-                  "g": p.enable_thermal}[k]
-        arrays[k] = (a * (1.0 + 1e-3 * rng.standard_normal(a.shape))
-                     if active else None)
-    arrays["phi"] = phi.numpy() if p.enable_ek else None
-    return state_from_numpy(cfg, arrays, device=device)
+    pops = dict(zip(("f", "h", "hn", "g"), state_from_macro(
+        cfg, macro, phi, efield(cfg, phi), 0.0)[:4]))
+    del macro
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = torch_dtype(cfg.run.dtype)
+    for k, a in pops.items():  # f, h, hn, g: None where inactive
+        if a is not None:
+            pops[k] = (a * (1.0 + 1e-3 * torch.randn(
+                a.shape, generator=gen, dtype=a.dtype, device=dev))).to(dtype)
+            del a
+    return State(**pops, phi=phi.to(dtype) if p.enable_ek else None,
+                 t=torch.tensor(0.0, dtype=dtype, device=dev))
 
 
 def phase_card():
@@ -984,7 +1010,7 @@ def _clone(state):
 def _cuda_mesh(name):
     from ekpnp_torch.parallel.mesh import make_mesh
 
-    n, pencil = MESHES[name]
+    n, pencil = MESHES[name] if name in MESHES else WIDE[name][:2]
     return make_mesh(["cuda"] * n, pencil=pencil)
 
 
@@ -1199,7 +1225,7 @@ def _sharded_chunks(cfg, mesh, state, steps, every, label, **kw):
     return state, chunks
 
 
-def time_sharded(cfg, mesh, state, bw):
+def time_sharded(cfg, mesh, state, bw, route=None, also=None):
     """Per form on shard 0: CUDA-event time, bound, and the plain
     version's time and error (fails above TOL) of the collide form, the
     fused pass of the form (on the collide's set, with the exchanged edge
@@ -1207,7 +1233,10 @@ def time_sharded(cfg, mesh, state, bw):
     collide form and the stream), and the stream; on a slab the row product
     on shard 0's RHS rows; the exchange (phi halo + the pass's edges of
     every shard), the distributed solve of the route, and the pencil's
-    column repair, all shards."""
+    column repair, all shards.  route: the one collide form to take (else
+    every form of `_shard_forms`); the stream and the exchange run on the
+    first form's set.  also: one more shard on which every form is held to
+    its plain version (its error counts with shard 0's)."""
     import torch
 
     from ekpnp_torch.kernels import fused_step as fs
@@ -1233,14 +1262,20 @@ def time_sharded(cfg, mesh, state, bw):
 
     def check(k, got, want):
         pairs = [(a, b) for a, b in zip(got, want) if b is not None]
-        res["rel_err"][k] = max(rel_err(a, b) for a, b in pairs)
-        res["abs_err"][k] = max(float((a - b).abs().max()) for a, b in pairs)
+        res["rel_err"][k] = max(res["rel_err"].get(k, 0.0),
+                                max(rel_err(a, b) for a, b in pairs))
+        res["abs_err"][k] = max(res["abs_err"].get(k, 0.0), max(
+            float((a - b).abs().max()) for a, b in pairs))
         if res["rel_err"][k] > TOL[cfg.run.dtype]:
             raise SystemExit(f"chip_smoke: sharded {k} vs plain rel err "
                              f"{res['rel_err'][k]:.3e}")
 
     passes = []
-    for kname, kw in _shard_forms(cfg, mesh):
+    forms = [(k, kw) for k, kw in _shard_forms(cfg, mesh)
+             if route in (None, k)]
+    if not forms:
+        raise SystemExit(f"chip_smoke: no shard form {route} here")
+    for kname, kw in forms:
         ins, halos = _shard_inputs(cfg, mesh, state, kw)
         x, h = ins[0], halos[0]
         posts = [fs.collide(cfg_l, *xi, phi_halo=hi, **kw)
@@ -1284,7 +1319,22 @@ def time_sharded(cfg, mesh, state, bw):
         res["plain_ms"][fp] = _events_ms(
             lambda: fs.fused_pass_reference(cfg_l, *post[:4], x[4], **pk), 2)
         del got, rows, cols, edges
-        if kname == "collide_kernel.halo":  # the row product, shard 0's RHS
+        if also is not None:  # the collide and the pass on shard `also`
+            xa, ha = ins[also], halos[also]
+            check(kname, posts[also], fs.collide_reference(
+                cfg_l, *xa, phi_halo=ha, **kw))
+            rows, cols = post_edges(cfg_l, mesh, [p[:4] for p in posts])[also]
+            pk = dict(rows=rows, cols=cols, phi_halo=ha, **kw)
+            check(fp, fs.fused_pass(cfg_l, *posts[also][:4], xa[4], **pk),
+                  fs.fused_pass_reference(cfg_l, *posts[also][:4], xa[4],
+                                          **pk))
+            if not mesh.pencil and posts[also][4] is not None:
+                check("hartley_rows_kernel", [fs.hartley_rows(posts[also][4])],
+                      [fs.hartley_rows_reference(posts[also][4])])
+            del rows, cols
+        if (not mesh.pencil and post[4] is not None
+                and "hartley_rows_kernel" not in res["kernel_ms"]):
+            # the row product, shard 0's RHS
             k = "hartley_rows_kernel"
             r = time_rows(post[4])
             for key in ("kernel_ms", "plain_ms", "library_ms", "rel_err",
@@ -1298,12 +1348,12 @@ def time_sharded(cfg, mesh, state, bw):
         elif kw.get("hartley_x"):
             res["other_ms"]["solve rhs_hx"] = _events_ms(
                 lambda: poisson_phi_from_rhs(cfg, rhs, mesh, rhs_hx=True), 10)
-        if kw.get("hartley_x") is not False:
-            del posts, post
-            continue
-        if rhs[0] is not None:
+        elif rhs[0] is not None:
             res["other_ms"]["solve plain"] = _events_ms(
                 lambda: poisson_phi_from_rhs(cfg, rhs, mesh), 10)
+        if kname != forms[0][0]:
+            del posts, post
+            continue
         pops = [p[:4] for p in posts]
         rows = post_rows(cfg_l, mesh, pops)
         out = fs.stream_bc(cfg_l, *pops[0], rows=rows[0])
@@ -1313,6 +1363,9 @@ def time_sharded(cfg, mesh, state, bw):
         bound(k, 2 * nb(pops[0]) + sum(nb(r) for r in rows[0] if r), 0)
         res["library_ms"][k] = None
         check(k, out, fs.stream_bc_reference(cfg_l, *pops[0], rows=rows[0]))
+        if also is not None:
+            check(k, fs.stream_bc(cfg_l, *pops[also], rows=rows[also]),
+                  fs.stream_bc_reference(cfg_l, *pops[also], rows=rows[also]))
         res["plain_ms"][k] = _events_ms(
             lambda: fs.stream_bc_reference(cfg_l, *pops[0], rows=rows[0]), 2)
         phi = state.phi
@@ -1436,6 +1489,99 @@ def phase_sharded_main(bw, start):
                           mlups=cfg.grid.num_nodes / (chunks[-1] * 1e6))
         del sh
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_meshes(bw):
+    """5c: ek-pnp-thermal at full width on the meshes of WIDE, every shard
+    on the one card, each from a make_state seeded state of its size (one
+    for both 256-wide meshes): 20 one-device steps on the mesh's route
+    (multi_step_rhs beside a pencil, multi_step beside the slab), then one
+    chunk of 20 sharded steps from the same state, one after the other
+    (held together they would take ~57 GB): the chunk within F32_SHARDED
+    of the one-device steps and equal to 20 two-launch sharded steps bit
+    for bit; per chunk and shard one collide, a pass for every other step
+    and one stream of the route's forms, none of another; the route's
+    forms timed on shard 0 and held to their plain versions there and on
+    the last shard, the exchange and the solve timed; ms/step from a
+    second chunk of 20 steps (its launches counted too)."""
+    import torch
+
+    import ekpnp_torch
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.kernels.step import multi_step, multi_step_rhs
+    from ekpnp_torch.parallel.mesh import gather_state, shard_state
+
+    steps = 20
+    out, start = {}, {}
+    for seed, (mname, (n, pencil, grid, form)) in enumerate(WIDE.items()):
+        cfg = ekpnp_torch.preset("ek-pnp-thermal", pb_omega=0.02, **grid)
+        label = f"ek-pnp-thermal {'x'.join(map(str, cfg.grid.shape[::-1]))} {mname}"
+        key = cfg.grid.shape
+        if key not in start:
+            start.clear()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            start[key] = make_state(cfg, seed=60 + seed, device="cuda")
+            torch.cuda.synchronize()
+            log(f"  {label}: make_state {time.perf_counter() - t0:.1f} s")
+        s0 = start[key]
+        single = multi_step_rhs if pencil else multi_step
+        ref = single(cfg, _clone(s0), steps)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the reference's second population set
+        mesh = _cuda_mesh(mname)
+        sh = shard_state(cfg, mesh, s0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.reset_launches()
+        sh, chunks = _sharded_chunks(cfg, mesh, sh, steps, steps, label)
+        counts = dict(fs.launches)
+        _want_launches(counts, label, **_route(form, steps * n, len(chunks) * n,
+                                               "stream_bc_kernel.halo"))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        two = _shard_steps(cfg, mesh, shard_state(cfg, mesh, s0), steps)
+        if not _shards_equal(sh, two):
+            raise SystemExit(f"chip_smoke: {label}: {steps} fused-chunk "
+                             f"steps differ from {steps} two-launch steps")
+        del two
+        got = gather_state(mesh, sh)
+        errs = {k: rel_err(getattr(got, k), getattr(ref, k))
+                for k in ("f", "h", "hn", "g", "phi")
+                if getattr(ref, k) is not None}
+        del got, ref
+        torch.cuda.empty_cache()
+        log(f"{label}: {steps} fused-chunk steps = {steps} two-launch sharded "
+            f"steps bit for bit; vs one device: " + " ".join(
+                f"{k} {e:.1e}" for k, e in errs.items()))
+        if max(errs.values()) > F32_SHARDED:
+            raise SystemExit(f"chip_smoke: {label}: sharded run differs from "
+                             f"the single-device run: {errs}")
+        # a second chunk, timed warm (the first pays the mesh's first
+        # allocations and solve shapes), its launches counted as well
+        fs.reset_launches()
+        sh, again = _sharded_chunks(cfg, mesh, sh, steps, steps,
+                                    label + " again")
+        counts2 = dict(fs.launches)
+        _want_launches(counts2, label + " again", **_route(
+            form, steps * n, len(again) * n, "stream_bc_kernel.halo"))
+        res = time_sharded(cfg, mesh, sh, bw, route=form, also=n - 1)
+        ms_step = again[-1] * 1e3
+        mlups = cfg.grid.num_nodes / (again[-1] * 1e6)
+        _log_sharded(label, res, ms_step)
+        log(f"{label}: {mlups:.1f} MLUPS, {ms_step:.3f} ms/step (first "
+            f"chunk {chunks[-1] * 1e3:.3f}), peak {peak_gb:.2f} GB, launches "
+            f"{({k: v for k, v in counts.items() if v})} a chunk")
+        out[mname] = dict(res, label=label, grid=list(cfg.grid.shape),
+                          mesh=list(mesh.grid), steps=steps, step_ms=ms_step,
+                          step_ms_first=chunks[-1] * 1e3, mlups=mlups,
+                          launches=[counts, counts2],
+                          vs_single_device=errs, vs_two_launch=0.0,
+                          peak_gb=peak_gb)
+        del sh
+        torch.cuda.empty_cache()
+    start.clear()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2062,6 +2208,7 @@ def main():
     report["runs"] = [full, head, fft]
     report["sharded"] = run("sharded_main", phase_sharded_main, bw, start)
     del start
+    report["wide"] = run("wide_meshes", phase_wide_meshes, bw)
     report["pod"] = run("pod", phase_pod, bw)
     report["cli"] = run("cli", phase_cli)
     report["sharded_cli"] = run("sharded_cli", phase_sharded_cli)
@@ -2078,6 +2225,7 @@ def main():
             (r["launches"], r["launches_phi_hx_off"])] + [fft["launches"]]
     runs += [c for m in sharded.values() for c in m["launches"]]
     runs += [m["launches"] for m in pod.values()]
+    runs += [c for m in report["wide"].values() for c in m["launches"]]
     runs += report["distributed"]["launches"]
     runs += [report["anchor"]["launches"], report["cli_full"]["launches"],
              report["cli_full"]["no_dump"]["launches"],
@@ -2137,6 +2285,16 @@ def main():
             if k in cell["two_launch_ms"]:  # a shard's fused pass
                 row.update(two_launch_ms=cell["two_launch_ms"][k],
                            two_launch_ms_pod=pod[mname]["two_launch_ms"][k])
+        # phase 5c: shard 0 of each wider mesh whose route takes the form
+        wide = {m: c for m, c in report["wide"].items() if k in c["kernel_ms"]}
+        if wide:
+            row.update(ms_wide={m: c["kernel_ms"][k] for m, c in wide.items()},
+                       bound_ms_wide={m: c["bound_ms"][k]
+                                      for m, c in wide.items()},
+                       plain_ms_wide={m: c["plain_ms"][k]
+                                      for m, c in wide.items()},
+                       max_abs_err=max([row["max_abs_err"]] + [
+                           c["abs_err"][k] for c in wide.values()]))
         kernels.append(row)
     report["kernels"] = kernels
     with open(os.path.join("smoke_out", "chip_smoke.json"), "w") as fh:

@@ -16,9 +16,12 @@ operations, the counterparts of what the JAX package's sharded step uses:
       `cat_axis` in j order: the repartition XLA inserts for a
       `with_sharding_constraint` that moves the sharded axis
       (ekpnp/parallel/fft.py).  An extent that n does not divide is cut as
-      `torch.tensor_split` cuts it (the first pieces one longer), as XLA
-      pads an uneven sharding: the reference's 50-wide x axis over 4
-      slabs;
+      `torch.tensor_split` cuts it (the first pieces one longer,
+      `even_cut`), as XLA pads an uneven sharding: the reference's 50-wide
+      x axis over 4 slabs.  A caller that joined pieces of unequal extents
+      names them (`split_sizes`, `cat_sizes`), so that the way back cuts
+      exactly what the way out joined: the pencil's y rows, cut over x
+      and joined over the whole mesh (parallel/fft.py);
   gather_rows, to_rank0  the per-shard partials of the diagnostics on
       every process, a whole field on rank 0 (the tests' and the smoke's
       gathers).
@@ -35,8 +38,9 @@ cards, Gloo on the CPU): every process walks the same global list of pairs
 order (NCCL matches by order) and give it the same tag, dst * size + src
 (Gloo matches by tag), and one call's messages go out as one
 `batch_isend_irecv`.  Receive buffers are shaped from the mesh, without a
-round trip: every shard's tensor has the receiving shard's shape except
-where `tensor_split` cut it.  Received tensors are ready on the current
+round trip: every piece has the receiving shard's shape except along
+the two axes of an all_to_all, where the caller's extents (or
+`even_cut`'s) give it.  Received tensors are ready on the current
 stream when a call returns (`Work.wait`).  Nothing here is a kernel of
 the port.
 """
@@ -59,8 +63,9 @@ def _groups(mesh, axis):
     raise ValueError(f"unknown mesh axis {axis!r}")
 
 
-def _sizes(extent: int, n: int):
-    """The piece extents of `torch.tensor_split(n)` of `extent`."""
+def even_cut(extent: int, n: int):
+    """The piece extents of `torch.tensor_split(n)` of `extent`: equal up
+    to one, the first pieces the longer."""
     q, r = divmod(extent, n)
     return [q + 1] * r + [q] * (n - r)
 
@@ -123,29 +128,34 @@ def ring_shift(mesh, shards, axis, shift: int):
 
 
 def all_to_all(mesh, shards, axis, split_axis: int, cat_axis: int,
-               cat_extent: int = None):
+               split_sizes=None, cat_sizes=None):
     """Within each group along `axis`: shard j cuts its tensor into n
-    pieces along `split_axis` (equal up to one, `torch.tensor_split`);
-    shard i gets piece i of every j, joined along `cat_axis`.
+    pieces along `split_axis`; shard i gets piece i of every j, joined
+    along `cat_axis` in j order.
 
-    cat_extent: the joined extent along `cat_axis` where the group's
-    tensors differ along it (the way back from an uneven cut: shard j then
-    holds `tensor_split` piece j of that extent); by default every shard's
-    tensor has the receiving shard's extent there."""
+    split_sizes: the extents of the n pieces each shard cuts, in group
+    order (the same for every shard of every group); by default
+    `even_cut` of its extent.  cat_sizes: the extents along `cat_axis` of
+    the pieces a shard joins, per sender in group order; by default the
+    receiving shard's own extent for every piece.  Both follow from the
+    mesh and the layout, so no process asks another for a shape."""
     out = [None] * len(shards)
     msgs = _Messages(mesh)
     parts = {}
     for group in _groups(mesh, axis):
         n = len(group)
-        pieces = {j: shards[j].tensor_split(n, dim=split_axis)
+        cut = lambda extent: (even_cut(extent, n) if split_sizes is None
+                              else list(split_sizes))
+        pieces = {j: shards[j].split(cut(shards[j].shape[split_axis]),
+                                     dim=split_axis)
                   for j in group if mesh.is_local(j)}
         for k, i in enumerate(group):
             here_i = mesh.is_local(i)
             if here_i:
                 like = shards[i]
                 shape = list(like.shape)
-                shape[split_axis] = _sizes(shape[split_axis], n)[k]
-                cat = (_sizes(cat_extent, n) if cat_extent is not None
+                shape[split_axis] = cut(shape[split_axis])[k]
+                cat = (cat_sizes if cat_sizes is not None
                        else [shape[cat_axis]] * n)
                 parts[i] = []
             for m, j in enumerate(group):

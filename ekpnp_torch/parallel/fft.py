@@ -31,6 +31,11 @@ JAX package's stage order:
                       --T(x)--> (., ., (y,x)) --T(y)--> back (fft2_xy,
                       hartley2_xy; hartley_y the y half)
 
+The (y, x) stages take any slab or pencil the mesh divides: a pencil
+shard's NYl rows go over its x group as `tensor_split` cuts them (6/5/5 for
+16 over 3), and each leg back cuts exactly the pieces its leg out joined
+(`_cuts`).  fft3 keeps the JAX package's divisibility checks.
+
 `hartley_x_local` stays local: x is whole on a slab shard.
 """
 from __future__ import annotations
@@ -40,7 +45,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .collectives import all_to_all
+from .collectives import all_to_all, even_cut
 
 # Contraction subscripts that keep the axis order: A @ H^T along x, a
 # z-batched H @ A along y, H @ A along z.
@@ -64,40 +69,47 @@ def _local(fn, blocks, axis):
     return [None if b is None else fn(b, axis) for b in blocks]
 
 
-def _extents(blocks, mesh):
-    """(NY_local, NX) of the blocks: the joined extents of the way back
-    from a cut that may be uneven (all_to_all's cat_extent)."""
+def _cuts(blocks, mesh):
+    """The piece extents of the (y, x) stages' repartitions: `ys`, a
+    shard's y rows cut over its x group (a pencil; `even_cut`, so uneven
+    where x does not divide them), `rows`, those of every shard in mesh
+    order (the joined y), and `cols`, the x cut of the stage between.  The
+    way back cuts what the way out joined."""
     b = blocks[mesh.local[0]]
-    return b.shape[1], b.shape[2] * mesh.grid[1]
+    ny, nx = mesh.grid
+    nyl, width = b.shape[1], b.shape[2] * nx
+    ys = even_cut(nyl, nx)
+    return ys, ys * ny, even_cut(width, ny * nx)
 
 
 def _xy_stages(blocks, mesh, stage):
     """stage(block, axis) along x, then y, with the mesh's repartitions
     between (the structure of fft2_xy / hartley2_xy)."""
-    nyl, nx = _extents(blocks, mesh)
+    ys, rows, cols = _cuts(blocks, mesh)
     if not mesh.pencil:
         a = _local(stage, blocks, 2)                    # x whole
         a = all_to_all(mesh, a, "y", 2, 1)              # y -> x
         a = _local(stage, a, 1)                         # y whole
-        return all_to_all(mesh, a, "y", 1, 2, nx)
+        return all_to_all(mesh, a, "y", 1, 2, cat_sizes=cols)
     a = all_to_all(mesh, blocks, "x", 1, 2)             # (., (y,x), .)
     a = _local(stage, a, 2)                             # x whole
-    a = all_to_all(mesh, a, ("y", "x"), 2, 1)           # (., ., (y,x))
-    a = _local(stage, a, 1)                             # y whole
-    a = all_to_all(mesh, a, ("y", "x"), 1, 2, nx)       # (., (y,x), .)
-    return all_to_all(mesh, a, "x", 2, 1, nyl)          # (., y, x)
+    a = all_to_all(mesh, a, ("y", "x"), 2, 1, cat_sizes=rows)
+    a = _local(stage, a, 1)                             # (., ., (y,x)), y whole
+    a = all_to_all(mesh, a, ("y", "x"), 1, 2, rows, cols)   # (., (y,x), .)
+    return all_to_all(mesh, a, "x", 2, 1, cat_sizes=ys)     # (., y, x)
 
 
 def _y_stage(blocks, mesh, stage):
     """stage(block, 1) alone, on a mesh (the y half of _xy_stages)."""
-    nyl, nx = _extents(blocks, mesh)
+    ys, rows, cols = _cuts(blocks, mesh)
     if not mesh.pencil:
         a = all_to_all(mesh, blocks, "y", 2, 1)
-        return all_to_all(mesh, _local(stage, a, 1), "y", 1, 2, nx)
+        return all_to_all(mesh, _local(stage, a, 1), "y", 1, 2,
+                          cat_sizes=cols)
     a = all_to_all(mesh, blocks, "x", 1, 2)
-    a = all_to_all(mesh, a, ("y", "x"), 2, 1)
-    a = all_to_all(mesh, _local(stage, a, 1), ("y", "x"), 1, 2, nx)
-    return all_to_all(mesh, a, "x", 2, 1, nyl)
+    a = all_to_all(mesh, a, ("y", "x"), 2, 1, cat_sizes=rows)
+    a = all_to_all(mesh, _local(stage, a, 1), ("y", "x"), 1, 2, rows, cols)
+    return all_to_all(mesh, a, "x", 2, 1, cat_sizes=ys)
 
 
 def _fft1(a, axis: int, inverse: bool = False):

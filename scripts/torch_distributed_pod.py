@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the sharded time loop of the `pod` preset (512x256x257, f32, every
-field D3Q27, PB cold start with pb_omega 0.02) on a 4-shard mesh, one of
-three ways:
+field D3Q27, PB cold start with pb_omega 0.02) on a mesh of --shards
+shards (4 by default; 8 makes pencil 2x4 and slab 8), one of three ways:
 
     # 4 processes, one card each, NCCL
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
@@ -10,6 +10,9 @@ three ways:
     python3 scripts/torch_distributed_pod.py --way cards --mesh slab
     # one process, the 4 shards stacked on one card
     python3 scripts/torch_distributed_pod.py --way one --mesh pencil
+    # pencil 2x4: 4 processes of 2 shards each
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        scripts/torch_distributed_pod.py --way nccl --mesh pencil --shards 8
 
 Each process runs the cold start itself and keeps its shards; one chunk
 of --every steps runs untimed (first launches, NCCL's first messages),
@@ -41,6 +44,7 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=["slab", "pencil"], required=True)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--size", choices=["pod", "tiny"], default="pod")
+    ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--every", type=int, default=25)
     args = ap.parse_args(argv)
@@ -71,11 +75,11 @@ def main(argv=None):
     dev = resolve_device(args.device)
     pencil = args.mesh == "pencil"
     if args.way == "nccl":
-        devices = mesh_devices(dev, 4, world)
+        devices = mesh_devices(dev, args.shards, world)
     elif args.way == "cards":
-        devices = mesh_devices(dev, 4)
+        devices = mesh_devices(dev, args.shards)
     else:
-        devices = [torch.device("cuda", 0) if cuda else dev] * 4
+        devices = [torch.device("cuda", 0) if cuda else dev] * args.shards
     mesh = make_mesh(devices, pencil=pencil, rank=rank, world=world)
     grid = {} if args.size == "pod" else dict(nx=32, ny=16, nz=17)
     cfg = ekpnp_torch.preset("pod", pb_omega=0.02, **grid)
@@ -148,7 +152,7 @@ def main(argv=None):
     ms_step = statistics.median(chunks)
     row = dict(way=args.way, mesh=args.mesh, size=args.size,
                device=(torch.cuda.get_device_name(0) if cuda else "cpu"),
-               processes=world, cards=len({str(d) for d in devices})
+               grid=list(mesh.grid), processes=world, cards=len({str(d) for d in devices})
                if args.way != "nccl" else world,
                init_s=init_s, chunk_ms_step=chunks, ms_step=ms_step,
                mlups=cfg.grid.num_nodes / (ms_step * 1e3),

@@ -37,13 +37,13 @@ CASES = {
 }
 
 
-def configs(case, fft_method="matmul"):
-    """(JAX config, port config) of one case, f64."""
+def configs(case, fft_method="matmul", **grid):
+    """(JAX config, port config) of one case, f64, with `grid` overrides."""
     import ekpnp
     import ekpnp_torch
 
     name, ov = CASES[case]
-    ov = dict(ov, fft_method=fft_method, dtype="float64")
+    ov = dict(ov, **grid, fft_method=fft_method, dtype="float64")
     return ekpnp.preset(name, **ov), ekpnp_torch.preset(name, **ov)
 
 

@@ -2,14 +2,16 @@
 on the CPU: two processes of 2 shards each join one 4-shard mesh over Gloo,
 as tests/test_multihost.py joins two JAX processes, on a slab and on a
 pencil (whose x exchanges stay inside a process and whose y exchanges
-cross processes), and four processes of one shard each on a pencil (every
+cross processes), four processes of one shard each on a pencil (every
 exchange crosses processes, and each process takes part in some pairs of
-a call only).  Held to the JAX package's single-process step at rtol
-1e-11 and to the port's one-process 4-shard mesh bit for bit: the state,
-the collectives (the uneven 50-over-4 cut included), the diagnostics, the
-per-process dumps once merged and the per-process checkpoint; then the CLI
-as two processes with the environment `python -m torch.distributed.run`
-sets.
+a call only), and two processes of 3 shards each on pencil 2x3, whose
+shards' 4 rows the 3 x-shards cut 2/1/1 (a process holds a whole x ring,
+the solve's uneven pieces cross processes).  Held to the JAX package's
+single-process step at rtol 1e-11 and to the port's one-process mesh of
+the same shards bit for bit: the state, the collectives (the uneven
+50-over-4, 16-over-3 and 4-over-3 cuts included), the diagnostics, the per-process
+dumps once merged and the per-process checkpoint; then the CLI as two
+processes with the environment `python -m torch.distributed.run` sets.
 
 This file is also its own worker process:
 
@@ -34,16 +36,22 @@ from test_torch_common import FIELDS, jax_steps, make_state_np, port_state
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120  # seconds, per launch
 STEPS = 3
-# job: (processes, pencil), 4 shards each
-JOBS = {"slab": (2, False), "pencil": (2, True), "pencil4": (4, True)}
+# job: (processes, shards, pencil)
+JOBS = {"slab": (2, 4, False), "pencil": (2, 4, True),
+        "pencil4": (4, 4, True), "pencil2x3": (2, 6, True)}
 
 
-def cfg_of():
-    """The JAX worker's case: `reference` at 16x8x9, f64, matmul solve."""
+def grid_of(job):
+    """The job's case: `reference` at 16x8x9 (24x8x9 on pencil 2x3), f64,
+    matmul solve."""
+    return dict(nx=24 if JOBS[job][1] == 6 else 16, ny=8, nz=9,
+                fft_method="matmul", dtype="float64")
+
+
+def cfg_of(job):
     import ekpnp_torch
 
-    return ekpnp_torch.preset("reference", nx=16, ny=8, nz=9,
-                              fft_method="matmul", dtype="float64")
+    return ekpnp_torch.preset("reference", **grid_of(job))
 
 
 def shard_np(mesh, a):
@@ -63,15 +71,19 @@ def collectives(mesh):
     """{name/shard: tensor} of every collective and distributed transform
     on this process's shards: ring_shift along each axis both ways,
     all_to_all in the transforms' layouts and across the reference's
-    uneven 50-wide x (13/13/12/12 over 4) and back, and the transforms on
-    it."""
+    uneven 50-wide x (13/13/12/12 over 4; on pencil 2x3 48 wide, a
+    shard's 16 columns over 3 x-shards 6/5/5) and back, and the
+    transforms on it (on pencil 2x3 they cut a shard's 4 rows 2/1/1)."""
     import ekpnp_torch.parallel.fft as tfft
-    from ekpnp_torch.parallel.collectives import all_to_all, ring_shift
+    from ekpnp_torch.parallel.collectives import (all_to_all, even_cut,
+                                                  ring_shift)
 
+    px = mesh.grid[1]
+    w, uw = (16, 50) if px != 3 else (24, 48)  # x extents the mesh divides
     rng = np.random.default_rng(7)
-    a = shard_np(mesh, rng.standard_normal((3, 8, 16)))
-    u = shard_np(mesh, rng.standard_normal((5, 8, 50)))
-    e = shard_np(mesh, rng.standard_normal((16, 8, 16)))
+    a = shard_np(mesh, rng.standard_normal((3, 8, w)))
+    u = shard_np(mesh, rng.standard_normal((5, 8, uw)))
+    e = shard_np(mesh, rng.standard_normal((w, 8, w)))
     res = {}
     axes = ["y", ("y", "x")] + (["x"] if mesh.pencil else [])
     for axis in axes:
@@ -81,8 +93,9 @@ def collectives(mesh):
     for axis in groups:
         there = all_to_all(mesh, u, axis, 2, 1)
         res[f"a2a {axis} uneven"] = there
-        res[f"a2a {axis} back"] = all_to_all(mesh, there, axis, 1, 2,
-                                             50 // mesh.grid[1])
+        n = mesh.size if axis == ("y", "x") else mesh.shape[axis]
+        res[f"a2a {axis} back"] = all_to_all(
+            mesh, there, axis, 1, 2, cat_sizes=even_cut(uw // px, n))
         res[f"a2a {axis} z"] = all_to_all(mesh, e, axis, 0, 2)
     res["hartley2_xy"] = tfft.hartley2_xy(u, mesh)
     res["hartley_y"] = tfft.hartley_y(u, mesh)
@@ -91,7 +104,7 @@ def collectives(mesh):
     return {f"{k}/{i}": v[i] for k, v in res.items() for i in mesh.local}
 
 
-def drive(mesh, out):
+def drive(mesh, out, job):
     """The distributed path on `mesh` from the same numpy start, written
     under `out`: collectives (coll_<rank>.npz), dumps at steps 0 and 3
     (io/), the series point (series_<rank>.npy), the per-process
@@ -107,7 +120,7 @@ def drive(mesh, out):
                                            shard_state)
 
     rank = mesh.rank
-    cfg = cfg_of()
+    cfg = cfg_of(job)
     np.savez(os.path.join(out, f"coll_{rank}.npz"),
              **{k: v.numpy() for k, v in collectives(mesh).items()})
 
@@ -172,7 +185,7 @@ def runs(tmp_path_factory):
     got = {}
     store = lambda j: f"file://{tmp / (j + '.store')}"
     argvs, outs = [], {}
-    for job, (world, _) in JOBS.items():
+    for job, (world, _, _) in JOBS.items():
         outs[job] = tmp / job
         (outs[job] / "io").mkdir(parents=True)
         argvs += [[sys.executable, os.path.abspath(__file__), str(r),
@@ -181,40 +194,48 @@ def runs(tmp_path_factory):
     results = _launch(argvs)
     for k, (rc, text) in enumerate(results):
         assert rc == 0, f"worker {k} rc {rc}:\n{text[-4000:]}"
-    for job, (_, pencil) in JOBS.items():
+    for job, (_, shards, pencil) in JOBS.items():
         one = tmp / f"{job}_one"
         (one / "io").mkdir(parents=True)
-        drive(make_mesh(["cpu"] * 4, pencil=pencil), str(one))
+        drive(make_mesh(["cpu"] * shards, pencil=pencil), str(one), job)
         got[job] = (outs[job], one)
     return got
 
 
 @pytest.fixture(scope="module")
 def jax_want():
+    """job -> 3 steps of the JAX package's step on the job's case, each
+    grid once."""
     import ekpnp
 
-    jcfg = ekpnp.preset("reference", nx=16, ny=8, nz=9, fft_method="matmul",
-                        dtype="float64")
-    return jax_steps(jcfg, make_state_np(cfg_of(), 41), STEPS)
+    done = {}
+
+    def want(job):
+        key = grid_of(job)["nx"]
+        if key not in done:
+            done[key] = jax_steps(ekpnp.preset("reference", **grid_of(job)),
+                                  make_state_np(cfg_of(job), 41), STEPS)
+        return done[key]
+    return want
 
 
 @pytest.mark.parametrize("job", sorted(JOBS))
 def test_processes_equal_the_jax_step(runs, jax_want, job):
-    """4 shards over the job's processes, 3 steps: the gathered state
+    """The job's shards over its processes, 3 steps: the gathered state
     equals 3 steps
     of the JAX package's single-process step at rtol 1e-11 / atol 1e-13
     on f, h, hn, g and phi."""
     from test_torch_common import assert_fields_close
 
     got = np.load(runs[job][0] / "state.npz")
-    assert_fields_close(jax_want, {k: got[k] if k in got else None
-                                   for k in FIELDS}, label=f"{job} ")
+    assert_fields_close(jax_want(job), {k: got[k] if k in got else None
+                                        for k in FIELDS}, label=f"{job} ")
 
 
 @pytest.mark.parametrize("job", sorted(JOBS))
 def test_processes_equal_one_process_bit_for_bit(runs, job):
     """The gathered state and the series point on each process equal the
-    port's one-process 4-shard mesh bit for bit."""
+    port's one-process mesh of the same shards bit for bit."""
     two, one = runs[job]
     world = JOBS[job][0]
     a, b = np.load(two / "state.npz"), np.load(one / "state.npz")
@@ -241,12 +262,16 @@ def test_collectives_across_processes(runs, job):
         with np.load(two / f"coll_{r}.npz") as z:
             got.update({k: z[k] for k in z.files})
     assert sorted(got) == sorted(want.files)
-    assert any(want[k].shape[-1] == 12 for k in want.files
-               if k.startswith("a2a y uneven"))
+    if JOBS[job][1] == 4:  # 50 over 4 slabs: 13/13/12/12
+        assert any(want[k].shape[-1] == 12 for k in want.files
+                   if k.startswith("a2a y uneven"))
+    else:  # a shard's 16 columns over 3 x-shards: 6/5/5
+        assert [want[f"a2a x uneven/{i}"].shape[-1] for i in range(6)] == \
+            [6, 5, 5] * 2
     for k in want.files:
         assert got[k].dtype == want[k].dtype, k
         assert np.array_equal(got[k], want[k]), k
-    per = 4 // world
+    per = JOBS[job][1] // world
     for r in range(world):  # contiguous blocks of mesh order
         with np.load(two / f"coll_{r}.npz") as z:
             assert {int(k.split("/")[1]) for k in z.files} == set(
@@ -268,7 +293,7 @@ def test_merged_dumps_are_byte_identical(runs, job):
     assert sorted(p.name for p in d.iterdir()) == ["meta.json"] + [
         f"shard_{r}.npz" for r in range(world)]
     assert json.loads((d / "meta.json").read_text())["nprocs"] == world
-    cfg = cfg_of()
+    cfg = cfg_of(job)
     assert merge_run_dir(str(two / "io"), cfg) == 2
     assert merge_run_dir(str(one / "io"), cfg) == 2
     for name in ("data.dat", "data_end.dat"):
@@ -285,10 +310,10 @@ def test_per_process_checkpoint_round_trip_and_resume(runs, job):
     from ekpnp_torch.parallel.mesh import gather_state, make_mesh
 
     two, _ = runs[job]
-    world, pencil = JOBS[job]
+    world, _, pencil = JOBS[job]
     for r in range(world):
         assert (two / f"roundtrip_{r}.txt").read_text() == "exact", r
-    cfg = cfg_of()
+    cfg = cfg_of(job)
     want = np.load(two / "state.npz")
     whole = load_sharded(str(two / "ckpt"), cfg, device="cpu")
     other = make_mesh(["cpu"] * 4, pencil=not pencil)
@@ -402,8 +427,9 @@ def _worker(rank, world, store, job, out):
     dist.init_process_group("gloo", init_method=store, rank=rank,
                             world_size=world)
     try:
-        mesh = make_mesh(["cpu"] * 4, pencil=JOBS.get(job, (0, False))[1],
-                         rank=rank, world=world)
+        _, shards, pencil = JOBS.get(job, (0, 4, False))
+        mesh = make_mesh(["cpu"] * shards, pencil=pencil, rank=rank,
+                         world=world)
         if job == "fail":
             from ekpnp_torch.parallel.collectives import ring_shift
 
@@ -411,7 +437,7 @@ def _worker(rank, world, store, job, out):
                 raise RuntimeError("deliberate failure on process 1")
             ring_shift(mesh, mesh.each(lambda i: torch.zeros(3)), "y", 1)
             return 0
-        drive(mesh, out)
+        drive(mesh, out, job)
         dist.barrier()
         return 0
     finally:
