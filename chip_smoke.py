@@ -9,10 +9,14 @@ printing the final line, if any phase fails:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the fused step kernels from csrc/fused_step.cu (nvcc, sm_90a),
      registers and spill stores per kernel (per lattice pair for the
-     collide, the passes and the stream);
+     collide, the passes and the stream; the row product's tensor-core
+     form hartley_rows_tf32x3_kernel on a line of its own);
   3. kernels vs their plain PyTorch versions on the card: the row product
-     hartley_rows_kernel alone at NX 10, 16, 25, 50, 256 and 512 on row
-     counts no multiple of its tile (plain and lifted, aligned and not);
+     alone at NX 10, 16, 25, 50, 256 and 512 on row counts no multiple of
+     its tile (plain and lifted, aligned and not), in both forms: in f32
+     at NX 16, 256 and 512 the tensor-core form (hartley_rows_tf32x3_kernel,
+     taken by the wrapper's rule, read from the launch counts) and the FMA
+     form (hartley_rows_kernel, forced), elsewhere the FMA form;
      every collide form and the stream on an odd 25x7x9 grid (their
      one-value staging and pull paths); then physics cases A-J and the reference's own 50x8x51, f64 and f32,
      3 steps each, every collide form (plain RHS; with EK on also
@@ -37,9 +41,12 @@ printing the final line, if any phase fails:
      the state must stay finite; 20 steps of the fused chunk must equal 20
      two-launch steps (step_fused_hx) bit for bit; every collide form, the
      fused pass of every form, stream_bc (next to Tensor.copy_ of the same
-     bytes, its practical ceiling), the row product (next to torch.matmul
-     on the same rows) and the three solves are timed by CUDA events and
-     each kernel is held to its plain version on that run's state;
+     bytes, its practical ceiling), the row product in both forms (next to
+     torch.matmul on the same rows, also device-only, and each one's error
+     against the f64 product) and the three solves are timed by CUDA
+     events and each kernel is held to its plain version on that run's
+     state; every full-size f32 run's row products must all be of the
+     tensor-core form (hartley_rows_kernel.tf32x3 = hartley_rows_kernel);
   6. the CLI with the perturbed first step, 10 steps on the card: rc 0,
      finite series;
 then the sharded time loop (ekpnp_torch/parallel), its shards all on the
@@ -57,6 +64,9 @@ one card (a mesh may hold a device more than once):
      the serial one bit for bit;
   4b. golden: `reference`, f64, one chunk of 60 steps on a slab-2 mesh
      (phi_hx route per shard, its launches counted), rtol 1e-9;
+  3c. a mesh whose solve cuts an empty piece: `reference` 4x8x9, f64, fft
+     route (cuFFT) on slab 8 (NX 4 over 8 shards), 2 sharded steps against
+     2 one-device steps at 1e-11;
   5b. full size: `ek-pnp-thermal` 256x256x257 f32 from phase 5's start
      state, one chunk of 20 steps on slab 4 (phi_hx .halo route) and one
      on pencil 2x2 (shard_x route), each held to 20 single-device steps
@@ -197,6 +207,7 @@ REPLACES = {
     "fused_pass_kernel.hartley_x.halo": "ekpnp/pallas/fused_step.py:516",
     "fused_pass_kernel.phi_hx.halo": "ekpnp/pallas/fused_step.py:516",
     "fused_pass_kernel.shard_x": "ekpnp/pallas/fused_step.py:521",
+    "hartley_rows_kernel.tf32x3": "ekpnp/pallas/fused_step.py:984",
 }
 # row products per step of each collide form (its collide or fused pass):
 # the RHS (hartley_x); psi and the RHS (phi_hx), and on a slab shard psi's
@@ -230,6 +241,10 @@ ROWS_NX = (10, 16, 25, 50, 256, 512)
 HBM_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
           ("H100", 3.35e12))
 PEAK = {"float32": 67e12, "float64": 34e12}  # H100 SXM, outside tensor cores
+PEAK_TF32 = 495e12  # H100 SXM, TF32 dense on the tensor cores
+# the row product's two forms: the FMA form's launches count under
+# hartley_rows_kernel alone, the tensor-core form's under both names
+ROWS_FMA, ROWS_TC = "hartley_rows_kernel", "hartley_rows_kernel.tf32x3"
 
 
 def log(*a):
@@ -336,7 +351,8 @@ def phase_build():
     # instantiation) and type, max over the lattice pairs
     fam, fam_spill, each = {}, {}, {}
     for name in re.findall(r"Compiling entry function '(\w+)'", info["log"]):
-        m = re.search(r"(hartley_rows_kernel|collide_kernel|fused_pass_kernel|"
+        m = re.search(r"(hartley_rows_tf32x3_kernel|hartley_rows_kernel|"
+                      r"collide_kernel|fused_pass_kernel|"
                       r"fused_pass_halo_kernel|stream_bc_halo_kernel|"
                       r"stream_bc_kernel)"
                       r"I([fd])(?:Li(\d+)ELi(\d+)E)?(?:Li(\d+)E)?"
@@ -358,6 +374,15 @@ def phase_build():
         f"spill stores max {max(spills or [0])} B; registers / spill stores "
         f"(B) by kernel: " + ", ".join(f"{k} {v}/{fam_spill[k]}"
                                        for k, v in sorted(fam.items())))
+    tc = "hartley_rows_tf32x3_kernel f"
+    if tc not in fam:
+        raise SystemExit("chip_smoke: the build has no hartley_rows_tf32x3_kernel")
+    log(f"  hartley_rows_tf32x3_kernel (the row product's tensor-core form, "
+        f"f32): {fam[tc]} registers, {fam_spill[tc]} B spill stores; the FMA "
+        f"form hartley_rows_kernel: " + ", ".join(
+            f"{k.replace('hartley_rows_kernel', '').strip() or 'f'} "
+            f"{fam[k]}/{fam_spill[k]}" for k in sorted(fam)
+            if k.startswith("hartley_rows_kernel")))
     for fam_name in ("collide_kernel", "fused_pass_kernel",
                      "fused_pass_halo_kernel", "stream_bc_kernel",
                      "stream_bc_kernel.vec"):
@@ -388,11 +413,16 @@ def _forms(cfg):
 
 
 def rows_vs_plain():
-    """hartley_rows_kernel against its plain version on the card, f64 and
-    f32, at every NX of ROWS_NX on 37 x 7 = 259 rows (two 128-row tiles and
-    3): lifted psi blocks (NZ, NY, NX) and halo rows (NZ, NX), plain RHS
-    blocks (NZ-2, NY, NX), and a block one element off 16-byte alignment
-    (the one-element cp.async path).  Returns {(dtype, kernel): worst}."""
+    """The row product against its plain version on the card, f64 and f32,
+    at every NX of ROWS_NX on 37 x 7 = 259 rows (two 128-row tiles and 3):
+    lifted psi blocks (NZ, NY, NX) and halo rows (NZ, NX), plain RHS blocks
+    (NZ-2, NY, NX), and a block one element off 16-byte alignment (the
+    one-element cp.async path).  Each call's form is read from the launch
+    counts: in f32 at NX 16, 256 and 512 the aligned blocks take the
+    tensor-core form (hartley_rows_tf32x3_kernel) and are held again in the
+    FMA form (hartley_rows_kernel, forced); f64, NX 10, 25 and 50 and the
+    misaligned block take the FMA form.  Returns {(dtype, kernel): worst},
+    the tensor-core form under hartley_rows_kernel.tf32x3."""
     import numpy as np
     import torch
 
@@ -410,20 +440,34 @@ def rows_vs_plain():
                 rng.standard_normal(shape), dtype=getattr(torch, dtype),
                 device="cuda")
             off = t(nz * ny * nx + 1)[1:].view(nz, ny, nx)
-            errs = []
+            errs = {ROWS_FMA: [], ROWS_TC: []}
             for a, lift in ((t(nz, ny, nx), cfg), (t(nz, nx), cfg),
                             (t(nz - 2, ny, nx), None), (off, cfg)):
-                errs.append(rel_err(fs.hartley_rows(a, lift=lift),
-                                    fs.hartley_rows_reference(a, lift=lift)))
+                want = fs.hartley_rows_reference(a, lift=lift)
+                tc = (dtype == "float32" and nx % 8 == 0
+                      and a.data_ptr() % 16 == 0)
+                before = fs.launches[ROWS_TC]
+                errs[ROWS_TC if tc else ROWS_FMA].append(
+                    rel_err(fs.hartley_rows(a, lift=lift), want))
+                if fs.launches[ROWS_TC] - before != int(tc):
+                    raise SystemExit(f"chip_smoke: row product {dtype} NX={nx}"
+                                     f" {tuple(a.shape)}: tensor-core form "
+                                     f"{not tc}, want {tc}")
+                if tc:
+                    errs[ROWS_FMA].append(rel_err(
+                        fs.hartley_rows(a, lift=lift, fma=True), want))
             torch.cuda.synchronize()
-            key = (dtype, "hartley_rows_kernel")
-            worst[key] = max(worst.get(key, 0.0), *errs)
-            if max(errs) > TOL[dtype]:
-                raise SystemExit(f"chip_smoke: hartley_rows_kernel {dtype} "
-                                 f"NX={nx} rel err {max(errs):.3e} > "
-                                 f"{TOL[dtype]}")
-            log(f"  hartley_rows_kernel {dtype} NX={nx:3d}: psi / halo rows "
-                f"/ RHS / misaligned " + " ".join(f"{e:.1e}" for e in errs))
+            for k, e in errs.items():
+                if not e:
+                    continue
+                worst[(dtype, k)] = max(worst.get((dtype, k), 0.0), *e)
+                if max(e) > TOL[dtype]:
+                    raise SystemExit(f"chip_smoke: {k} {dtype} NX={nx} rel "
+                                     f"err {max(e):.3e} > {TOL[dtype]}")
+            log(f"  row product {dtype} NX={nx:3d}: " + "; ".join(
+                f"{'tensor-core' if k == ROWS_TC else 'FMA'} form "
+                + " ".join(f"{x:.1e}" for x in e)
+                for k, e in errs.items() if e))
     return worst
 
 
@@ -565,17 +609,27 @@ def _golden_devs(cfg, state, label):
     return devs
 
 
-def _route(form, steps, chunks, stream="stream_bc_kernel"):
+def _tc(cfg):
+    """Whether the config's row products take the tensor-core form: f32 and
+    NX % 8 == 0 (the port's rows are contiguous tensors of their own, 16-byte
+    aligned): every full-size f32 run."""
+    return cfg.run.dtype == "float32" and cfg.grid.nx % 8 == 0
+
+
+def _route(form, steps, chunks, stream="stream_bc_kernel", tc=False):
     """The launches of `steps` steps of collide form `form` in `chunks`
     chunks and their row products: a collide and a stream per chunk and a
-    fused pass of the form for every other step.  On shards, steps and
-    chunks count each shard's (steps x shards, chunks x shards), the
-    stream is .halo and the pass the collide form's .halo / .shard_x."""
+    fused pass of the form for every other step; with `tc` every row
+    product of the tensor-core form.  On shards, steps and chunks count
+    each shard's (steps x shards, chunks x shards), the stream is .halo
+    and the pass the collide form's .halo / .shard_x."""
     want = {form: chunks, stream: chunks}
     if steps > chunks:
         want[fused_name(form)] = steps - chunks
     if ROWS_PER_COLLIDE.get(form):
-        want["hartley_rows_kernel"] = ROWS_PER_COLLIDE[form] * steps
+        want[ROWS_FMA] = ROWS_PER_COLLIDE[form] * steps
+        if tc:
+            want[ROWS_TC] = want[ROWS_FMA]
     return want
 
 
@@ -620,6 +674,25 @@ def _events_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def _device_ms(fn, reps):
+    """Device time of one call: the card sleeps first while the host queues
+    the `reps` calls behind it, so the events time the kernels back to back,
+    not the host's pace (a small row product's wrapper takes ~20-30 us on
+    the host, more than its kernel)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def _ops_rows(nx, m):
     """Operations of the row product over m rows of nx values: a multiply
     and an add per term, nx terms per value."""
@@ -656,34 +729,84 @@ def _design_bytes(kname, rhs, phi, halo_rows=0):
 
 
 def time_rows(rows, lift=None):
-    """hartley_rows_kernel on `rows` (NZ', NY, NX) by CUDA events, its plain
-    version, and torch.matmul on the same (M, NX) rows and H (the library
-    call; the lift, an add per row, left out); the bytes of its bound (the
-    rows read and written and H read once) and its operations.  Fails if
-    the kernel differs from its plain version by more than TOL."""
+    """The row product on `rows` (NZ', NY, NX, f32) in both forms by CUDA
+    events: the tensor-core form the wrapper takes (hartley_rows_tf32x3_kernel;
+    fails if it took the other) and the FMA form (hartley_rows_kernel,
+    forced), its plain version, and torch.matmul on the same (M, NX) rows
+    and H (the library call; the lift, an add per row, left out); each
+    one's max|d| / max|ref| against the f64 product of the same f32 values;
+    the bytes of the bound (the rows read and written and H read once) and
+    the operations of one product.  Fails if a form differs from the plain
+    version by more than TOL."""
     import torch
 
     from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.ops.poisson import lifting_profile
 
     nx = rows.shape[-1]
     flat = rows.view(-1, nx)
     H = fs._cas(nx, rows)
+    before = fs.launches[ROWS_TC]
     got = fs.hartley_rows(rows, lift=lift)
+    if fs.launches[ROWS_TC] != before + 1:
+        raise SystemExit(f"chip_smoke: the row product on {tuple(rows.shape)}"
+                         f" did not take the tensor-core form")
+    fma = fs.hartley_rows(rows, lift=lift, fma=True)
     want = fs.hartley_rows_reference(rows, lift=lift)
+    mm = torch.matmul(flat, H).view(rows.shape)
+    if lift is not None:
+        mm = mm + lifting_profile(lift, rows.dtype, rows.device)
+    ref64 = fs.hartley_rows_reference(rows.double(), lift=lift)
     dtype = str(rows.dtype).replace("torch.", "")
     res = dict(ms=_events_ms(lambda: fs.hartley_rows(rows, lift=lift), 10),
+               ms_fma=_events_ms(
+                   lambda: fs.hartley_rows(rows, lift=lift, fma=True), 10),
                plain_ms=_events_ms(
                    lambda: fs.hartley_rows_reference(rows, lift=lift), 10),
                library_ms=_events_ms(lambda: torch.matmul(flat, H), 10),
-               rel_err=rel_err(got, want),
+               device_ms={k: _device_ms(fn, 10) for k, fn in (
+                   ("tf32x3", lambda: fs.hartley_rows(rows, lift=lift)),
+                   ("fma", lambda: fs.hartley_rows(rows, lift=lift,
+                                                   fma=True)),
+                   ("matmul", lambda: torch.matmul(flat, H)))},
+               rel_err=rel_err(got, want), rel_err_fma=rel_err(fma, want),
                abs_err=float((got - want).abs().max()),
+               abs_err_fma=float((fma - want).abs().max()),
+               err_vs_f64={k: rel_err(v.double(), ref64) for k, v in
+                           (("tf32x3", got), ("fma", fma), ("matmul", mm),
+                            ("plain", want))},
                bytes=(2 * rows.numel() * rows.element_size()
                       + H.numel() * H.element_size()),
                ops=_ops_rows(nx, flat.shape[0]), rows=flat.shape[0], nx=nx)
-    if res["rel_err"] > TOL[dtype]:
-        raise SystemExit(f"chip_smoke: hartley_rows_kernel vs plain rel err "
-                         f"{res['rel_err']:.3e} on {tuple(rows.shape)}")
+    del ref64, mm
+    for k in ("rel_err", "rel_err_fma"):
+        if res[k] > TOL[dtype]:
+            raise SystemExit(f"chip_smoke: row product vs plain {k} "
+                             f"{res[k]:.3e} on {tuple(rows.shape)}")
     return res
+
+
+def _rows_keys(r):
+    """The two forms' entries of time_rows' result: {kernel: (ms, rel err,
+    abs err, operations, peak)}; the tensor-core form does three TF32
+    products, bound against the TF32 rate."""
+    return {ROWS_FMA: (r["ms_fma"], r["rel_err_fma"], r["abs_err_fma"],
+                       r["ops"], PEAK["float32"]),
+            ROWS_TC: (r["ms"], r["rel_err"], r["abs_err"], 3 * r["ops"],
+                      PEAK_TF32)}
+
+
+def _log_rows(label, r, bw):
+    tb = r["bytes"] / bw * 1e3
+    log(f"  row product, {label} ({r['rows']} rows x {r['nx']}): tensor-core "
+        f"form {r['ms']:.4f} ms, FMA form {r['ms_fma']:.4f} ms, torch.matmul "
+        f"{r['library_ms']:.4f} ms (device alone: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r["device_ms"].items()) + "); bounds "
+        f"TF32 x3 "
+        f"{max(tb, 3 * r['ops'] / PEAK_TF32 * 1e3):.4f} / FP32 "
+        f"{max(tb, r['ops'] / PEAK['float32'] * 1e3):.4f} (bytes {tb:.4f}); "
+        f"max|d|/max|ref| vs the f64 product: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in r["err_vs_f64"].items()))
 
 
 def _chunks(cfg, state, steps, every, run, label):
@@ -712,11 +835,11 @@ def _chunks(cfg, state, steps, every, run, label):
     return state, chunks
 
 
-def _expect_launches(label, counts, form, steps, chunks):
+def _expect_launches(label, counts, form, steps, chunks, tc=False):
     """The run launched `form` and stream_bc_kernel once per chunk, the
-    form's fused pass for every other step, the form's row products, and
-    no other kernel form."""
-    _want_launches(counts, label, **_route(form, steps, chunks))
+    form's fused pass for every other step, the form's row products (with
+    `tc`, all of the tensor-core form), and no other kernel form."""
+    _want_launches(counts, label, **_route(form, steps, chunks, tc=tc))
 
 
 def fused_vs_two_launch(cfg, state, steps):
@@ -775,13 +898,14 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     state, chunks = _chunks(cfg, start, steps, every, multi_step, label)
     counts = dict(fs.launches)
     _expect_launches(label, counts, "collide_kernel.phi_hx", steps,
-                     len(chunks))
+                     len(chunks), tc=_tc(cfg))
     fs.reset_launches()
     state, other = _chunks(cfg, state, other_steps, other_steps,
                            multi_step_rhs, label + " phi_hx off")
     counts_other = dict(fs.launches)
     _expect_launches(label + " phi_hx off", counts_other,
-                     "collide_kernel.hartley_x", other_steps, len(other))
+                     "collide_kernel.hartley_x", other_steps, len(other),
+                     tc=_tc(cfg))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9  # the time loop's
     finite = check_finite(state)
     if not finite:
@@ -799,8 +923,7 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
     ins = (state.f, state.h, state.hn, state.g, state.phi)
     H_bytes = cfg.grid.nx ** 2 * state.f.element_size()
     ms, plain_ms, lib_ms, errs, abs_errs, bytes_, ops = {}, {}, {}, {}, {}, {}, {}
-    solve_ms, design_bytes = {}, {}
-    rk = "hartley_rows_kernel"
+    solve_ms, design_bytes, peak = {}, {}, {}
     for kname, kw in FORMS:
         x = _form_inputs(cfg, ins, kw)
         post = fs.collide(cfg, *x, **kw)
@@ -844,10 +967,11 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
             solve_ms["psi_hx"] = _events_ms(
                 lambda: poisson_psi_hx_from_rhs(cfg, rhs), 10)
             lib_ms[kname] = _events_ms(lambda: hartley_x_local(plain_rhs), 10)
-            r = time_rows(plain_rhs)  # the row product on the RHS rows
-            ms[rk], plain_ms[rk], lib_ms[rk] = r["ms"], r["plain_ms"], r["library_ms"]
-            errs[rk], abs_errs[rk] = r["rel_err"], r["abs_err"]
-            bytes_[rk], ops[rk] = r["bytes"], r["ops"]
+            r = rows_rhs = time_rows(plain_rhs)  # the RHS rows, both forms
+            for k, (t, e, ae, o, pk) in _rows_keys(r).items():
+                ms[k], errs[k], abs_errs[k], ops[k], peak[k] = t, e, ae, o, pk
+                plain_ms[k], lib_ms[k] = r["plain_ms"], r["library_ms"]
+                bytes_[k] = r["bytes"]
         else:
             psi = x[4]
             lib_ms[kname] = _events_ms(lambda: hartley_x_local(psi), 10)
@@ -880,7 +1004,8 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
 
     bound, bound_design = {}, {}
     for k in ms:
-        tb, to = bytes_[k] / bw * 1e3, ops[k] / PEAK[cfg.run.dtype] * 1e3
+        tb = bytes_[k] / bw * 1e3
+        to = ops[k] / peak.get(k, PEAK[cfg.run.dtype]) * 1e3
         bound[k] = (max(tb, to), "bytes" if tb >= to else "operations")
         if k in design_bytes:  # the composed forms' own floor
             bound_design[k] = max(design_bytes[k] / bw * 1e3, to)
@@ -897,6 +1022,7 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
                plain_ms=plain_ms, bound_ms={k: v[0] for k, v in bound.items()},
                bound_by={k: v[1] for k, v in bound.items()},
                bound_design_ms=bound_design, rows_decode=decode,
+               rows_rhs=rows_rhs,
                bytes=bytes_, ops=ops, rel_err=errs, abs_err=abs_errs,
                peak_gb=peak_gb, peak_init_gb=peak_init_gb, finite=finite,
                series_point_ms=series_ms, copy_ms=copy_ms)
@@ -915,9 +1041,8 @@ def drive(label, cfg, make, steps, every, other_steps, bw):
         log(f"  {k}: {ms[k]:.3f} ms (bound {bound[k][0]:.3f}, {bound[k][1]}"
             f"{des}), plain {plain_ms[k]:.2f} ms{lib}{two_l}, rel err "
             f"{errs[k]:.2e}")
-    log(f"  {rk} decode (psi, lifted, {decode['rows']} rows): "
-        f"{decode['ms']:.3f} ms, torch.matmul {decode['library_ms']:.3f} ms, "
-        f"plain {decode['plain_ms']:.3f} ms, rel err {decode['rel_err']:.2e}")
+    _log_rows("the RHS rows", rows_rhs, bw)
+    _log_rows("the psi decode, lifted", decode, bw)
     log("  solve: " + ", ".join(f"{k} {v:.3f} ms" for k, v in solve_ms.items())
         + f"; a series event (diagnostics.series_point) {series_ms:.3f} ms")
     return res, state
@@ -1200,6 +1325,36 @@ def phase_sharded_golden():
                         "steps, phi_hx .halo route)")
 
 
+def phase_empty_pieces():
+    """3c: a mesh whose solve cuts an empty piece (ROADMAP fault 10):
+    `reference` 4x8x9, f64, fft route (cuFFT), on slab 8, whose x stage
+    cuts NX 4 over 8 shards (1/1/1/1/0/0/0/0): 2 sharded steps
+    (make_halo_multi_step) equal 2 one-device steps at 1e-11
+    (max|d| / max|ref| per field; the solve sums in another order)."""
+    import ekpnp_torch
+    from ekpnp_torch.kernels.step import multi_step
+    from ekpnp_torch.parallel.halo import make_halo_multi_step
+    from ekpnp_torch.parallel.mesh import gather_state, make_mesh, shard_state
+
+    cfg = ekpnp_torch.preset("reference", nx=4, ny=8, nz=9, dtype="float64",
+                             fft_method="fft")
+    s0 = make_state(cfg, seed=70, device="cuda")
+    want = multi_step(cfg, _clone(s0), 2)
+    mesh = make_mesh(["cuda"] * 8)
+    got = gather_state(mesh, make_halo_multi_step(cfg, mesh, 2)(
+        shard_state(cfg, mesh, s0)))
+    errs = {k: rel_err(getattr(got, k), getattr(want, k))
+            for k in ("f", "h", "hn", "g", "phi")
+            if getattr(want, k) is not None}
+    if max(errs.values()) > 1e-11:
+        raise SystemExit(f"chip_smoke: 4x8x9 slab 8 fft route: 2 sharded "
+                         f"steps differ from one device: {errs}")
+    log("(3c) reference 4x8x9 f64 on slab 8, fft route (cuFFT; empty x "
+        "pieces): 2 sharded steps vs one device " + " ".join(
+            f"{k} {fmt_err(e)}" for k, e in errs.items()))
+    return errs
+
+
 def _sharded_chunks(cfg, mesh, state, steps, every, label, **kw):
     """make_halo_multi_step in chunks of `every` steps, a series point after
     each; returns (state, seconds per step of each chunk)."""
@@ -1255,8 +1410,8 @@ def time_sharded(cfg, mesh, state, bw, route=None, also=None):
                other_ms={}, two_launch_ms={})
     peak = PEAK[cfg.run.dtype]
 
-    def bound(k, nbytes, ops):
-        tb, to = nbytes / bw * 1e3, ops / peak * 1e3
+    def bound(k, nbytes, ops, pk=None):
+        tb, to = nbytes / bw * 1e3, ops / (pk or peak) * 1e3
         res["bound_ms"][k] = max(tb, to)
         res["bound_by"][k] = "bytes" if tb >= to else "operations"
 
@@ -1329,18 +1484,21 @@ def time_sharded(cfg, mesh, state, bw, route=None, also=None):
                   fs.fused_pass_reference(cfg_l, *posts[also][:4], xa[4],
                                           **pk))
             if not mesh.pencil and posts[also][4] is not None:
-                check("hartley_rows_kernel", [fs.hartley_rows(posts[also][4])],
-                      [fs.hartley_rows_reference(posts[also][4])])
+                ra = posts[also][4]
+                for k, fma in ((ROWS_TC, False), (ROWS_FMA, True)):
+                    check(k, [fs.hartley_rows(ra, fma=fma)],
+                          [fs.hartley_rows_reference(ra)])
             del rows, cols
         if (not mesh.pencil and post[4] is not None
-                and "hartley_rows_kernel" not in res["kernel_ms"]):
-            # the row product, shard 0's RHS
-            k = "hartley_rows_kernel"
-            r = time_rows(post[4])
-            for key in ("kernel_ms", "plain_ms", "library_ms", "rel_err",
-                        "abs_err"):
-                res[key][k] = r[{"kernel_ms": "ms"}.get(key, key)]
-            bound(k, r["bytes"], r["ops"])
+                and ROWS_FMA not in res["kernel_ms"]):
+            # the row product, shard 0's RHS, both forms
+            r = res["rows_rhs"] = time_rows(post[4])
+            for k, (t, e, ae, o, pk) in _rows_keys(r).items():
+                res["kernel_ms"][k], res["rel_err"][k] = t, e
+                res["abs_err"][k] = ae
+                res["plain_ms"][k] = r["plain_ms"]
+                res["library_ms"][k] = r["library_ms"]
+                bound(k, r["bytes"], o, pk)
         rhs = [p[4] for p in posts]
         if kw.get("phi_hx"):
             res["other_ms"]["solve psi_hx"] = _events_ms(
@@ -1391,7 +1549,7 @@ def time_sharded(cfg, mesh, state, bw, route=None, also=None):
     return res
 
 
-def _log_sharded(label, res, ms_step):
+def _log_sharded(label, res, ms_step, bw):
     for k, v in res["kernel_ms"].items():
         pl = (f", plain {res['plain_ms'][k]:.2f} ms, rel err "
               f"{res['rel_err'][k]:.2e}" if k in res["plain_ms"] else "")
@@ -1405,6 +1563,8 @@ def _log_sharded(label, res, ms_step):
         log(f"  {label} {k} (shard 0): {v:.3f} ms (bound "
             f"{res['bound_ms'][k]:.3f}, {res['bound_by'][k]}{des}){pl}{lib}"
             f"{two}")
+    if "rows_rhs" in res:
+        _log_rows(f"{label} shard 0's RHS rows", res["rows_rhs"], bw)
     log(f"  {label} all shards: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in res["other_ms"].items())
         + f"; exchange {res.get('exchange_bytes', 0) / 1e6:.1f} MB; "
@@ -1440,7 +1600,8 @@ def phase_sharded_main(bw, start):
         runs = [dict(fs.launches)]
         _want_launches(runs[0], label, **_route(form, steps * 4,
                                                 len(chunks) * 4,
-                                                "stream_bc_kernel.halo"))
+                                                "stream_bc_kernel.halo",
+                                                tc=_tc(cfg)))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         two = _shard_steps(cfg, mesh, shard_state(cfg, mesh, s0), steps)
         if not _shards_equal(sh, two):
@@ -1474,11 +1635,12 @@ def phase_sharded_main(bw, start):
                 runs.append(dict(fs.launches))
                 _want_launches(runs[-1], f"{label} {sub}",
                                **_route(sform, 40, len(c) * 4,
-                                        "stream_bc_kernel.halo"))
+                                        "stream_bc_kernel.halo",
+                                        tc=_tc(cfg)))
                 other[sub] = c[-1] * 1e3
         res = time_sharded(cfg, mesh, sh, bw)
         ms_step = chunks[-1] * 1e3
-        _log_sharded(label, res, ms_step)
+        _log_sharded(label, res, ms_step, bw)
         log(f"{label}: {cfg.grid.num_nodes / (chunks[-1] * 1e6):.1f} MLUPS, "
             f"{ms_step:.3f} ms/step ({', '.join(f'{k} {v:.3f}' for k, v in other.items())}), "
             f"peak {peak_gb:.2f} GB")
@@ -1538,7 +1700,8 @@ def phase_wide_meshes(bw):
         sh, chunks = _sharded_chunks(cfg, mesh, sh, steps, steps, label)
         counts = dict(fs.launches)
         _want_launches(counts, label, **_route(form, steps * n, len(chunks) * n,
-                                               "stream_bc_kernel.halo"))
+                                               "stream_bc_kernel.halo",
+                                               tc=_tc(cfg)))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         two = _shard_steps(cfg, mesh, shard_state(cfg, mesh, s0), steps)
         if not _shards_equal(sh, two):
@@ -1564,11 +1727,12 @@ def phase_wide_meshes(bw):
                                     label + " again")
         counts2 = dict(fs.launches)
         _want_launches(counts2, label + " again", **_route(
-            form, steps * n, len(again) * n, "stream_bc_kernel.halo"))
+            form, steps * n, len(again) * n, "stream_bc_kernel.halo",
+            tc=_tc(cfg)))
         res = time_sharded(cfg, mesh, sh, bw, route=form, also=n - 1)
         ms_step = again[-1] * 1e3
         mlups = cfg.grid.num_nodes / (again[-1] * 1e6)
-        _log_sharded(label, res, ms_step)
+        _log_sharded(label, res, ms_step, bw)
         log(f"{label}: {mlups:.1f} MLUPS, {ms_step:.3f} ms/step (first "
             f"chunk {chunks[-1] * 1e3:.3f}), peak {peak_gb:.2f} GB, launches "
             f"{({k: v for k, v in counts.items() if v})} a chunk")
@@ -1615,13 +1779,14 @@ def phase_pod(bw):
         sh, chunks = _sharded_chunks(cfg, mesh, sh, 50, 25, label)
         counts = dict(fs.launches)
         _want_launches(counts, label, **_route(form, 200, len(chunks) * 4,
-                                               "stream_bc_kernel.halo"))
+                                               "stream_bc_kernel.halo",
+                                               tc=_tc(cfg)))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
         res = time_sharded(cfg, mesh, sh, bw)
         ms_step = chunks[-1] * 1e3
         mlups = cfg.grid.num_nodes / (chunks[-1] * 1e6)
-        _log_sharded(label, res, ms_step)
+        _log_sharded(label, res, ms_step, bw)
         log(f"{label}: {mlups:.1f} MLUPS, {ms_step:.3f} ms/step, peak "
             f"{peak_gb:.2f} GB")
         out[mname] = dict(res, label=label, step_ms=ms_step, mlups=mlups,
@@ -1767,7 +1932,7 @@ def phase_distributed():
             _want_launches(counts, label, **_route(
                 "collide_kernel.phi_hx.halo", (steps - 1) * per,
                 _cli_chunks(steps, nsave, ncur) * per,
-                "stream_bc_kernel.halo"))
+                "stream_bc_kernel.halo", tc=prec == "f32"))
             res["launches"].append(counts)
             return out, text
 
@@ -1951,7 +2116,8 @@ def _cli_full(nsave):
         counts.update(json.loads(text.split("kernel launches:")[1]
                                  .splitlines()[0]))
         _want_launches(counts, label, **_route(
-            "collide_kernel.phi_hx", 299, _cli_chunks(300, nsave, 50)))
+            "collide_kernel.phi_hx", 299, _cli_chunks(300, nsave, 50),
+            tc=True))
         res = dict(
             seconds=secs, zones=zones, launches=counts, free_gb=free_gb,
             mlups=float(text.split("speed:")[1].split("(")[0]),
@@ -2116,6 +2282,10 @@ def phase_bench(head, full):
     if not launches["coupled"]["fused_pass_kernel.phi_hx"]:
         raise SystemExit(f"chip_smoke: bench: the timed windows launched no "
                          f"fused pass: {launches['coupled']}")
+    rows = launches["coupled"]
+    if not rows[ROWS_FMA] or rows[ROWS_TC] != rows[ROWS_FMA]:
+        raise SystemExit(f"chip_smoke: bench: row products {rows[ROWS_FMA]}, "
+                         f"of the tensor-core form {rows[ROWS_TC]}")
     log(f"(d) bench headline {c['value']} MLUPS vs phase 5 D3Q7 "
         f"{head['mlups']:.1f}; parity {c['ref_parity_all_d3q27_mlups']} vs "
         f"phase 5 all-D3Q27 {full['mlups']:.1f}")
@@ -2204,6 +2374,7 @@ def main():
     report["sharded_worst_rel"] = [[*k, v] for k, v in worst_sh.items()]
     report["sharded_golden_rel_dev"] = run("sharded_golden",
                                            phase_sharded_golden)
+    report["empty_pieces"] = run("empty_pieces", phase_empty_pieces)
     full, head, fft, start = run("main", phase_main_path, bw)
     report["runs"] = [full, head, fft]
     report["sharded"] = run("sharded_main", phase_sharded_main, bw, start)
@@ -2241,7 +2412,7 @@ def main():
                 ms=full["kernel_ms"][k], plain_ms=full["plain_ms"][k],
                 bound_ms=full["bound_ms"][k], bound_by=full["bound_by"][k],
                 library_ms=full["library_ms"][k],
-                max_err_f64=worst[("float64", k)],
+                max_err_f64=worst.get(("float64", k)),  # none: tf32x3
                 max_err_f32=worst[("float32", k)],
                 ms_d3q7=head["kernel_ms"][k],
                 plain_ms_d3q7=head["plain_ms"][k],
@@ -2256,14 +2427,26 @@ def main():
             if k == "stream_bc_kernel":  # its ceiling: a copy of its bytes
                 row.update(copy_ms=full["copy_ms"],
                            copy_ms_d3q7=head["copy_ms"])
-            if k == "hartley_rows_kernel":  # the RHS rows; decode, pod
+            if k in (ROWS_FMA, ROWS_TC):  # the RHS rows; decode, pod
                 dec, pod_s = full["rows_decode"], pod["slab4"]
-                row.update(ms_decode=dec["ms"],
+                form = "tf32x3" if k == ROWS_TC else "fma"
+                row.update(ms_decode=dec["ms" if k == ROWS_TC else "ms_fma"],
                            library_ms_decode=dec["library_ms"],
                            plain_ms_decode=dec["plain_ms"],
+                           device_ms=full["rows_rhs"]["device_ms"][form],
+                           device_library_ms=full["rows_rhs"]["device_ms"][
+                               "matmul"],
+                           err_vs_f64=full["rows_rhs"]["err_vs_f64"][form],
+                           library_err_vs_f64=full["rows_rhs"]["err_vs_f64"][
+                               "matmul"],
                            ms_pod=pod_s["kernel_ms"][k],
                            library_ms_pod=pod_s["library_ms"][k],
                            bound_ms_pod=pod_s["bound_ms"][k])
+                if "slab8" in report["wide"]:  # slab 8's shard 0 RHS rows
+                    s8 = report["wide"]["slab8"]["rows_rhs"]
+                    row.update(device_ms_slab8=s8["device_ms"][form],
+                               device_library_ms_slab8=s8["device_ms"][
+                                   "matmul"])
         else:  # sharded: ek-pnp-thermal shard 0, slab 4 or pencil 2x2
             mname = "pencil2x2" if "shard_x" in k else "slab4"
             cell = sharded[mname]

@@ -54,7 +54,8 @@
 //                     post plane NZ-1 takes plane NZ-2, and the top plane
 //                     is post[d, NZ-2, y-ey, x-ex] for every d.  A chunk's
 //                     last launch.
-//   hartley_rows_kernel  the TPU kernel's x-Hartley products
+//   hartley_rows_kernel (and in f32 hartley_rows_tf32x3_kernel, on the
+//                     tensor cores)  the TPU kernel's x-Hartley products
 //                     (fused_step.py:247-268, :680-696, :984-990) as a
 //                     product of its own: out[r, :] = in[r, :] @ H
 //                     (+ lift(z(r))), H[j, k] = cas(2 pi j k / NX), over M
@@ -120,11 +121,14 @@
 // memory once more (in and out: 2 x 67 MB per product at 256^3 in f32):
 // on the TPU the products ride the idle MXU inside the step kernel, but on
 // Hopper holding whole rows in the collide's block cost it its occupancy
-// and decoded every phi row 3.75 times (PERF.md).  hartley_rows_kernel is
-// a register-tiled product on the FMA pipes (no tensor cores: TF32 would
-// leave the 1e-5 tolerance of f32, and each output is summed over x in
-// order 0..NX-1 with explicit fused multiply-adds, as the plain version's
-// kernels were, so f64 stays at 0 / <= 1e-12).  A shard moves the same
+// and decoded every phi row 3.75 times (PERF.md).  The row product has two
+// forms: in f32 at NX % 8 == 0 (every production grid)
+// hartley_rows_tf32x3_kernel, split TF32 on the tensor cores (three TF32
+// wgmma passes whose sum keeps an f32 product's error, the counterpart of
+// the TPU's Precision.HIGHEST); in f64 and at other widths
+// hartley_rows_kernel, register-tiled on the FMA pipes (each output summed
+// over x in order 0..NX-1 with explicit fused multiply-adds, as the plain
+// version's kernels were, so f64 stays at 0 / <= 1e-12).  A shard moves the same
 // bytes per node plus its halo: two phi rows (and columns), two post rows
 // of 9 / 5 / 1 directions per field (and on a pencil two columns).  The
 // halo reads select a pointer and an index (PhiSrc, ShardPulled, pull) and
@@ -141,6 +145,7 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -1100,6 +1105,311 @@ __global__ void __launch_bounds__(kRowsThreads, 2) hartley_rows_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The row product on the tensor cores, f32: hartley_rows_tf32x3_kernel.
+//
+// The TPU kernel runs these products on its matrix unit at
+// Precision.HIGHEST (fused_step.py:510, :689-696, :984-990): several
+// low-precision passes that together give an f32-accurate product.  Here
+// the same on Hopper's TF32 tensor cores, split TF32: x = hi + lo with hi
+// = x rounded to TF32 (cvt.rna.tf32.f32) and lo = x - hi rounded the
+// same way, and out = a_hi H_hi + a_hi H_lo + a_lo H_hi, accumulated in
+// f32 registers (the dropped a_lo H_lo and the two roundings are 2^-22 of
+// a term, an f32 product's level; one TF32 pass keeps ~3 digits, which
+// is why the port's matrix products run with TF32 off).  H_hi, H_lo are
+// split once per NX on the host (kernels/fused_step.py tf32_split); H is
+// symmetric, so H as stored is the K-major B operand: row n of H is
+// output column n's x values.
+//
+// Bound: operations.  3 x 2 NX operations per output (8.6 GFLOP a
+// product at 256^3, x 3) over 495 TFLOP/s TF32 dense; the bytes (the rows
+// in and out) take less.  FP32 FMA could not go under 2 NX / 67 TFLOP/s.
+// What holds it back in practice is L2: every row tile reads all of H_hi
+// and H_lo (2 x 256 KB at NX 256) again, so the tile is as tall as two
+// warpgroups make it.
+//
+// One block of kTcWG = 2 warpgroups computes a kTcBM x kTcBN = 128 x 128
+// output tile (64 rows a warpgroup: wgmma's m64), block b the row tile b /
+// nc and the column tile b % nc, nc = ceil(NX / kTcBN)
+// (hartley_rows_grid): 1020 blocks on the full 65280 rows, 128 on slab
+// 8's 8160 (4 of the 132 SMs idle: a 64-row tile, 256 blocks in two
+// waves that read H twice as often, was slower there too).
+// The x axis goes in stages
+// of kTcBK = 32 (one 128-byte row of f32, the width of the swizzle):
+// every thread copies 16-byte pieces of the block's rows and of H_hi,
+// H_lo into a ring of kTcStages stages with cp.async, each piece of row
+// r, 16-byte column c at r * 128 + ((c ^ (r % 8)) * 16) (the 128-byte
+// swizzle wgmma's descriptors name), zeros past M and NX; an mbarrier per
+// stage completes when every thread's copies have landed
+// (cp.async.mbarrier.arrive.noinc).  A is split in shared memory: each
+// warpgroup rewrites its 64 rows of the stage as a_hi in place and a_lo
+// into a second tile of the same layout (elementwise, so the swizzle does
+// not matter), then the proxy fence and a barrier make the tiles visible
+// to the tensor cores.  Per stage 4 k-steps of 8 x 3 wgmma m64n128k8 into
+// a stage sum, committed as one group; the next stage's split runs while
+// they do; then the stage sum is added into the f32 accumulators in
+// registers (round to nearest): the tensor cores' own f32 accumulation
+// truncates, and summed over all of x it left several times the FMA
+// form's error; per stage it stays below it (PERF.md).  The copy into
+// the slot of stage kt - 1 is issued once the barrier shows both
+// warpgroups done with it.  The epilogue adds the lift as the FMA form does
+// (folded in double, cast to f32) and stores 16 bytes a thread: lanes q,
+// q ^ 1 swap a row's pair by shuffle, so that each holds 4 consecutive
+// columns of one row.  Taken where the wrapper finds f32, NX % 8 == 0
+// and 16-byte-aligned rows and splits (every production grid: NX 192,
+// 256, 512); f64 and other widths take hartley_rows_kernel above.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWG = 2;                   // consumer warpgroups a block
+constexpr int kTcBM = 64 * kTcWG;          // output rows a block
+constexpr int kTcBN = 128;                 // output columns a block
+constexpr int kTcBK = 32;                  // x per stage
+constexpr int kTcStages = 3;
+constexpr int kTcThreads = 128 * kTcWG;
+constexpr int kTcA = kTcBM * kTcBK * 4;    // bytes of a stage's A tile
+constexpr int kTcB = kTcBN * kTcBK * 4;    // bytes of a stage's B tile
+// a stage: A (a_hi after the split), A_lo, B_hi, B_lo
+constexpr int kTcStage = 2 * kTcA + 2 * kTcB;
+// the stages from a 1024-byte boundary (the swizzle's period), then the
+// stages' mbarriers
+constexpr size_t kTcSmem = 1024 + (size_t)kTcStages * kTcStage + 8 * kTcStages;
+static_assert(kTcA % 1024 == 0 && kTcB % 1024 == 0, "tiles on the period");
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// the wgmma descriptor of a K-major tile in 128-byte swizzle at shared
+// address `addr`: rows of 128 bytes, 8-row groups 1024 bytes apart (the
+// stride byte offset); the leading byte offset is unused by this layout
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+// the barrier's arrival of this thread, once its cp.async copies so far
+// have landed
+__device__ __forceinline__ void mbar_arrive_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n"
+                 ".reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n"
+                 "}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// the accumulators pinned in their registers across the asynchronous
+// products (no move of them may be scheduled between issue and wait)
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d = A B + (add ? d : 0) over one k-step of 8: A (64 x 8) and B (8 x 128, stored as
+// its transpose, K-major) in shared memory through their descriptors, tf32
+// operands, f32 accumulators (the m64nNk8 layout: d[4j + 0, 1] row g,
+// columns 8j + 2q, + 1; d[4j + 2, 3] row g + 8; g = lane / 4, q = lane % 4,
+// rows offset by 16 per warp)
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float* d, uint64_t a,
+                                                     uint64_t b, int add) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(add));
+}
+
+// in: m rows of nx f32; hhi, hlo: tf32_split of the (nx, nx) cas matrix;
+// out: m rows of nx.  lift as hartley_rows_kernel's.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 1) hartley_rows_tf32x3_kernel(
+    const T* __restrict__ in, const T* __restrict__ hhi,
+    const T* __restrict__ hlo, T* __restrict__ out, int64_t m, int nx,
+    int lift, int rows_per_z, int nz, double volt, double volt2) {
+  static_assert(sizeof(T) == 4, "the tf32 form is f32's");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the stages, shared space
+  unsigned char* const tiles = smem_raw + (base - raw);
+  const uint32_t bars = base + kTcStages * kTcStage;
+
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int ncol = (nx + kTcBN - 1) / kTcBN;
+  const int64_t m0 = (int64_t)(blockIdx.x / ncol) * kTcBM;
+  const int n0 = (int)(blockIdx.x % ncol) * kTcBN;
+  const int nkt = (nx + kTcBK - 1) / kTcBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) mbar_init(bars + 8 * s, kTcThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage kt's rows of `in` and of H_hi, H_lo into slot s, swizzled
+  auto load = [&](int kt, int s) {
+    unsigned char* const a = tiles + s * kTcStage;
+    unsigned char* const bh = a + 2 * kTcA;
+    unsigned char* const bl = bh + kTcB;
+    const int k0 = kt * kTcBK;
+#pragma unroll
+    for (int j = 0; j < kTcBM * 8 / kTcThreads; ++j) {
+      const int c = tid + j * kTcThreads, r = c / 8, ch = c % 8;
+      const int k = k0 + 4 * ch;
+      const bool ok = m0 + r < m && k < nx;
+      cp_async<16>(a + r * 128 + ((ch ^ (r % 8)) << 4),
+                   ok ? in + (m0 + r) * nx + k : in, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < kTcBN * 8 / kTcThreads; ++j) {
+      const int c = tid + j * kTcThreads, r = c / 8, ch = c % 8;
+      const int k = k0 + 4 * ch;
+      const bool ok = n0 + r < nx && k < nx;
+      const int64_t g = ok ? (int64_t)(n0 + r) * nx + k : 0;
+      const int so = r * 128 + ((ch ^ (r % 8)) << 4);
+      cp_async<16>(bh + so, hhi + g, ok);
+      cp_async<16>(bl + so, hlo + g, ok);
+    }
+    mbar_arrive_copies(bars + 8 * s);
+  };
+
+  // this warpgroup's 64 rows of stage kt's A: a_hi in place, a_lo beside
+  auto split = [&](int kt) {
+    const int s = kt % kTcStages;
+    mbar_wait(bars + 8 * s, (uint32_t)(kt / kTcStages) & 1);
+    float4* const ah = reinterpret_cast<float4*>(tiles + s * kTcStage
+                                                 + wg * 64 * 128);
+    float4* const al = reinterpret_cast<float4*>(tiles + s * kTcStage + kTcA
+                                                 + wg * 64 * 128);
+#pragma unroll
+    for (int j = 0; j < 64 * 128 / 16 / 128; ++j) {
+      const int i = wt + j * 128;
+      const float4 v = ah[i];
+      float4 h, l;
+      h.x = tf32_rna(v.x); l.x = tf32_rna(v.x - h.x);
+      h.y = tf32_rna(v.y); l.y = tf32_rna(v.y - h.y);
+      h.z = tf32_rna(v.z); l.z = tf32_rna(v.z - h.z);
+      h.w = tf32_rna(v.w); l.w = tf32_rna(v.w - h.w);
+      ah[i] = h;
+      al[i] = l;
+    }
+    // the split's and the copies' writes, seen by the tensor cores
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  float acc[64], sum[64];  // the accumulators; a stage's sum
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s)
+    if (s < nkt) load(s, s);
+  split(0);
+  __syncthreads();
+  for (int kt = 0; kt < nkt; ++kt) {
+    // stage kt - 1's slot: free, the barrier shows both warpgroups done
+    const int next = kt + kTcStages - 1;
+    if (next < nkt) load(next, next % kTcStages);
+    const int s = kt % kTcStages;
+    const uint32_t sa = base + s * kTcStage + wg * 64 * 128;
+    const uint32_t sb = base + s * kTcStage + 2 * kTcA;
+    fence_acc(sum);
+    wgmma_fence();
+#pragma unroll
+    for (int k8 = 0; k8 < kTcBK / 8; ++k8) {
+      const uint32_t ko = 32 * k8;  // bytes along the 128-byte row
+      const uint64_t a_hi = sw128_desc(sa + ko);
+      const uint64_t a_lo = sw128_desc(sa + kTcA + ko);
+      const uint64_t b_hi = sw128_desc(sb + ko);
+      const uint64_t b_lo = sw128_desc(sb + kTcB + ko);
+      wgmma_m64n128k8_tf32(sum, a_lo, b_hi, k8 > 0);
+      wgmma_m64n128k8_tf32(sum, a_hi, b_lo, 1);
+      wgmma_m64n128k8_tf32(sum, a_hi, b_hi, 1);
+    }
+    wgmma_commit();
+    fence_acc(sum);
+    if (kt + 1 < nkt) split(kt + 1);  // while the tensor cores work
+    wgmma_wait<0>();
+    fence_acc(sum);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = acc[i] + sum[i];
+    __syncthreads();  // stage kt done and stage kt + 1 split, both groups
+  }
+
+  const int warp = wt / 32, lane = wt % 32, g = lane / 4, q = lane % 4;
+  const bool top = (q & 1) == 0;  // stores row g, else row g + 8
+  const int64_t r = m0 + wg * 64 + warp * 16 + g + (top ? 0 : 8);
+  float lv = 0.0f;
+  if (lift) {
+    const int z = (int)(r / rows_per_z);
+    lv = (float)(volt + ((volt2 - volt) * (double)z) / (double)(nz - 1));
+  }
+  T* const o = out + r * nx;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    // a top lane sends its row g + 8 pair, a bottom lane its row g pair
+    const float s0 = top ? acc[4 * j + 2] : acc[4 * j];
+    const float s1 = top ? acc[4 * j + 3] : acc[4 * j + 1];
+    const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    float4 v = top ? make_float4(acc[4 * j], acc[4 * j + 1], r0, r1)
+                   : make_float4(r0, r1, acc[4 * j + 2], acc[4 * j + 3]);
+    if (lift) {
+      v.x = v.x + lv; v.y = v.y + lv; v.z = v.z + lv; v.w = v.w + lv;
+    }
+    const int col = n0 + 8 * j + 2 * (q & 2);
+    if (r < m && col < nx) *reinterpret_cast<float4*>(o + col) = v;
+  }
+}
+
 // Post-collision populations of one field on a shard.  lo / hi: the
 // y-neighbours' post-collision rows y = -1 / y = NY, holding only the
 // directions with ey = +1 / ey = -1 (those that pull across that edge), in
@@ -1553,20 +1863,41 @@ int launch_fused_pass_halo(const HostInts& I, const HostConsts& C,
   return (int)cudaGetLastError();
 }
 
-// One row-product launch; bm, bn, blocks: the tile and grid the wrapper
-// computed (kernels/fused_step.py hartley_rows_grid), -2 unless they are
-// this build's.  in, out: m contiguous rows of nx values, not aliased.
+// One row-product launch; tc: the tensor-core form (H, H_lo: the split
+// H_hi, H_lo), else the FMA form (H the cas matrix, H_lo unused); bm, bn,
+// blocks: the tile and grid the wrapper computed (kernels/fused_step.py
+// hartley_rows_grid), -2 unless they are this build's for the form, or
+// for tc unless f32, nx % 8 == 0 and every pointer 16-byte aligned.  in,
+// out: m contiguous rows of nx values, not aliased.
 template <typename T>
-int launch_hartley_rows(int bm, int bn, int64_t blocks, const void* in,
-                        const void* H, void* out, int64_t m, int nx,
-                        int lift, int rows_per_z, int nz, double volt,
-                        double volt2, cudaStream_t s) {
+int launch_hartley_rows(int tc, int bm, int bn, int64_t blocks,
+                        const void* in, const void* H, const void* H_lo,
+                        void* out, int64_t m, int nx, int lift,
+                        int rows_per_z, int nz, double volt, double volt2,
+                        cudaStream_t s) {
   using R = RowsTile<T>;
-  const int64_t want = ((m + R::BM - 1) / R::BM) * ((nx + R::BN - 1) / R::BN);
-  if (bm != R::BM || bn != R::BN || blocks != want || blocks < 1
+  const int tbm = tc ? kTcBM : R::BM, tbn = tc ? kTcBN : R::BN;
+  const int64_t want = ((m + tbm - 1) / tbm) * ((nx + tbn - 1) / tbn);
+  if (bm != tbm || bn != tbn || blocks != want || blocks < 1
       || blocks > 0x7fffffff || (lift && rows_per_z < 1))
     return -2;
   const auto al = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  if (tc) {
+    if constexpr (std::is_same<T, float>::value) {
+      if (nx % 8 != 0 || !al(in) || !al(H) || !al(H_lo) || !al(out))
+        return -2;
+      auto kern = hartley_rows_tf32x3_kernel<T>;
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
+      if (e != cudaSuccess) return (int)e;
+      kern<<<(unsigned)blocks, kTcThreads, kTcSmem, s>>>(
+          (const T*)in, (const T*)H, (const T*)H_lo, (T*)out, m, nx, lift,
+          rows_per_z, nz, volt, volt2);
+      return (int)cudaGetLastError();
+    } else {
+      return -2;
+    }
+  }
   const bool vec = nx % R::W == 0 && al(in) && al(H) && al(out);
   auto kern = vec ? hartley_rows_kernel<T, true>
                   : hartley_rows_kernel<T, false>;
@@ -1698,16 +2029,19 @@ int ekpnp_collide(int is_f64, const int* ints, const double* consts,
 }
 
 // out[r, :] = in[r, :] @ H (+ lift) over m rows of nx values, H the
-// (nx, nx) cas matrix; all three in the tensors' type.  lift != 0: add
-// volt + (volt2 - volt) z / (nz - 1), z = r / rows_per_z.  bm, bn, blocks:
-// the wrapper's tile and grid, checked against this build's (-2).
-int ekpnp_hartley_rows(int is_f64, int bm, int bn, long long blocks,
-                       const void* in, const void* H, void* out, long long m,
-                       int nx, int lift, int rows_per_z, int nz, double volt,
-                       double volt2, void* stream) {
+// (nx, nx) cas matrix; all in the tensors' type.  tc != 0: the
+// tensor-core form, H and H_lo the split H_hi, H_lo (f32 only); else H
+// itself and H_lo null.  lift != 0: add volt + (volt2 - volt) z / (nz - 1),
+// z = r / rows_per_z.  bm, bn, blocks: the wrapper's tile and grid,
+// checked against this build's (-2).
+int ekpnp_hartley_rows(int is_f64, int tc, int bm, int bn, long long blocks,
+                       const void* in, const void* H, const void* H_lo,
+                       void* out, long long m, int nx, int lift,
+                       int rows_per_z, int nz, double volt, double volt2,
+                       void* stream) {
   if (is_f64 != kIsF64) return -3;
-  return launch_hartley_rows<Real>(bm, bn, blocks, in, H, out, m, nx, lift,
-                                   rows_per_z, nz, volt, volt2,
+  return launch_hartley_rows<Real>(tc, bm, bn, blocks, in, H, H_lo, out, m,
+                                   nx, lift, rows_per_z, nz, volt, volt2,
                                    reinterpret_cast<cudaStream_t>(stream));
 }
 

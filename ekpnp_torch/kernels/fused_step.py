@@ -32,8 +32,11 @@ call (`fused_step`) and a shard's two-launch step (`step_halo`) are a
 collide and a stream.  The order of every operation is the plain step's
 (ekpnp_torch/step.py), so the chunk equals its two-launch steps bit for
 bit.  The x-Hartley forms are composed here from the collide (or the
-pass) and the row product `hartley_rows_kernel` (`hartley_rows`: rows @
-H, H the (NX, NX) cas matrix, register-tiled on the FMA pipes):
+pass) and the row product (`hartley_rows`: rows @ H, H the (NX, NX) cas
+matrix), in f32 at NX % 8 == 0 `hartley_rows_tf32x3_kernel` (split TF32
+on the tensor cores: the rows and H split into TF32 hi + lo,
+`tf32_split`, three products summed in f32), in f64 and at other widths
+`hartley_rows_kernel` (register-tiled on the FMA pipes):
 hartley_x takes the product of the RHS rows after the launch; phi_hx
 first decodes psi_hx into phi (the product plus the lifting profile, each
 row once, a shard's two psi halo rows too).  The TPU kernel's lane
@@ -42,9 +45,9 @@ switches have no counterpart: a CUDA thread indexes any NX and NY, and the
 form is an argument.
 
 Bound: device-memory bytes (above).  The x-Hartley forms add 2 NX
-operations per RHS value and per decoded phi value, and send the rows
-they transform through device memory once more (read and written by the
-product).
+operations per RHS value and per decoded phi value (three times that on
+the tensor cores), and send the rows they transform through device
+memory once more (read and written by the product).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` of the
 source in this checkout into `ekpnp_torch/_build/`, one library per
@@ -87,7 +90,9 @@ from ..step import PostCollision, collide_and_reflect, stream_and_bcs
 # plain-RHS collide on a pencil shard (.shard_x), and the shards' stream
 # launch (.halo: stream_bc_halo_kernel; on a pencil the wrap-column repair
 # of parallel/halo.py follows); then the shards' fused pass in the same
-# forms (.halo, .shard_x: fused_pass_halo_kernel)
+# forms (.halo, .shard_x: fused_pass_halo_kernel); last, the row products
+# that took the tensor-core form (hartley_rows_tf32x3_kernel), which
+# hartley_rows_kernel counts as well
 KERNELS = ("collide_kernel", "collide_kernel.hartley_x",
            "collide_kernel.phi_hx", "fused_pass_kernel",
            "fused_pass_kernel.hartley_x", "fused_pass_kernel.phi_hx",
@@ -96,7 +101,8 @@ KERNELS = ("collide_kernel", "collide_kernel.hartley_x",
            "collide_kernel.phi_hx.halo", "collide_kernel.shard_x",
            "stream_bc_kernel.halo", "fused_pass_kernel.halo",
            "fused_pass_kernel.hartley_x.halo",
-           "fused_pass_kernel.phi_hx.halo", "fused_pass_kernel.shard_x")
+           "fused_pass_kernel.phi_hx.halo", "fused_pass_kernel.shard_x",
+           "hartley_rows_kernel.tf32x3")
 _FORMS = {(False, False): "", (True, False): ".hartley_x",
           (True, True): ".phi_hx"}
 # launches of each kernel form on the card, counted where it is launched
@@ -120,9 +126,10 @@ _SCALARS = ("inv_cfl", "half_dt", "dt", "kappa", "rhs_scale", "ext_field",
             "K", "hn_op", "hn_om", "Kn", "g_op", "g_om", "joule")
 _ARRAYS27 = ("wf", "ws", "mw", "gjw", "fwics2")
 _CBC = {"noflux": 0, "injection": 1, "zerograd-top": 2}
-# csrc RowsTile: the output tile (rows, columns) one block of
-# hartley_rows_kernel computes, by element size
-ROWS_TILE = {4: (128, 128), 8: (128, 64)}
+# the output tile (rows, columns) one block of the row product computes:
+# hartley_rows_kernel by element size (csrc RowsTile), the tensor-core
+# form (kTcBM, kTcBN)
+ROWS_TILE = {4: (128, 128), 8: (128, 64), "tf32x3": (128, 128)}
 
 # the element type of each library, by the wrappers' is_f64
 REALS = {0: "float", 1: "double"}
@@ -258,11 +265,12 @@ def _load():
         # stream_bc: {post, lo, hi} x 4 (array), out x 4
         lib.ekpnp_collide.argtypes = [ci, vp, vp] + [vp] * 10 + [vp]
         lib.ekpnp_collide.restype = ci
-        # is_f64, bm, bn, blocks, in, H, out, m, nx, lift, rows_per_z, nz,
-        # volt, volt2, stream
+        # is_f64, tc, bm, bn, blocks, in, H, H_lo, out, m, nx, lift,
+        # rows_per_z, nz, volt, volt2, stream
         ll, dbl = ctypes.c_longlong, ctypes.c_double
-        lib.ekpnp_hartley_rows.argtypes = ([ci, ci, ci, ll, vp, vp, vp, ll]
-                                           + [ci] * 4 + [dbl, dbl, vp])
+        lib.ekpnp_hartley_rows.argtypes = ([ci, ci, ci, ci, ll, vp, vp, vp,
+                                            vp, ll] + [ci] * 4
+                                           + [dbl, dbl, vp])
         lib.ekpnp_hartley_rows.restype = ci
         lib.ekpnp_stream_bc.argtypes = [ci, vp, vp] + [vp] * 5 + [vp]
         lib.ekpnp_stream_bc.restype = ci
@@ -367,13 +375,39 @@ def resolve_hartley_x(cfg: Config, hartley_x: Optional[bool] = None,
     return bool(hartley_x)
 
 
-def hartley_rows_grid(m: int, nx: int, itemsize: int):
-    """(tile rows bm, tile columns bn, blocks) of a hartley_rows_kernel
-    launch over m rows of nx values: block b computes the output rows
-    (b // nc) bm .. + bm and the columns (b % nc) bn .. + bn, clipped to
-    (m, nx), nc = ceil(nx / bn).  The kernel refuses any other."""
-    bm, bn = ROWS_TILE[itemsize]
+def hartley_rows_tc(dtype: torch.dtype, nx: int, *ptrs: int) -> bool:
+    """Whether a row product takes the tensor-core form
+    (hartley_rows_tf32x3_kernel): f32, nx % 8 == 0 and every pointer (the
+    rows in and out, H_hi, H_lo) 16-byte aligned; else hartley_rows_kernel
+    (f64, the odd widths, a misaligned block)."""
+    return (dtype == torch.float32 and nx % 8 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def hartley_rows_grid(m: int, nx: int, itemsize: int, tc: bool = False):
+    """(tile rows bm, tile columns bn, blocks) of a row-product launch over
+    m rows of nx values, of the tensor-core form (`tc`) or the FMA form:
+    block b computes the output rows (b // nc) bm .. + bm and the columns
+    (b % nc) bn .. + bn, clipped to (m, nx), nc = ceil(nx / bn).  The
+    kernel refuses any other."""
+    bm, bn = ROWS_TILE["tf32x3" if tc else itemsize]
     return bm, bn, -(-m // bm) * -(-nx // bn)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of f32 `x`: hi is x rounded to TF32 (the 13 low mantissa
+    bits cleared, to nearest, ties away from zero: cvt.rna.tf32.f32), lo is
+    x - hi rounded the same way, so |x - hi - lo| <= 2^-22 |x|.  On the
+    bits: adding half of the dropped range to the magnitude rounds it away
+    from zero at a tie, whatever the sign."""
+    def rna(v):
+        b = v.contiguous().view(torch.int32)
+        return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_split: wants float32, got {x.dtype}")
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 # ---------------------------------------------------------------------------
@@ -615,10 +649,12 @@ def _prep(cfg: Config, tensors: dict, like):
             torch.cuda.current_stream(like.device).cuda_stream)
 
 
-# the cas matrix of each (NX, dtype, device), made once: making it per
-# launch (numpy, then a host-to-device copy, which waits for the
-# stream) would stall the host in the step loop
+# the cas matrix of each (NX, dtype, device), and its TF32 split (H_hi,
+# H_lo) of each (NX, device), made once: making them per launch (numpy,
+# then a host-to-device copy, which waits for the stream) would stall the
+# host in the step loop
 _H = {}
+_H_SPLIT = {}
 
 
 def _cas(nx: int, like: torch.Tensor) -> torch.Tensor:
@@ -628,12 +664,26 @@ def _cas(nx: int, like: torch.Tensor) -> torch.Tensor:
     return _H[key]
 
 
-def hartley_rows(a, *, lift: Optional[Config] = None):
+def _cas_split(nx: int, like: torch.Tensor):
+    key = (nx, like.device)
+    if key not in _H_SPLIT:
+        _H_SPLIT[key] = tf32_split(_hartley_matrix(nx, torch.float32,
+                                                   like.device))
+    return _H_SPLIT[key]
+
+
+def hartley_rows(a, *, lift: Optional[Config] = None, fma: bool = False):
     """The x-Hartley row product: `a @ H` along the last axis (x) of a
     contiguous (NZ', NY, NX) block or (NZ', NX) rows, H the (NX, NX) cas
     matrix; with `lift` (a config), plus its lifting profile per z (the
     first axis, the grid's NZ): the psi_hx decode.  CUDA tensors launch
-    hartley_rows_kernel, CPU tensors run `hartley_rows_reference`."""
+    the tensor-core form hartley_rows_tf32x3_kernel where
+    `hartley_rows_tc` holds, else hartley_rows_kernel; every launch counts
+    under hartley_rows_kernel, the tensor-core ones also under
+    hartley_rows_kernel.tf32x3.  fma: hartley_rows_kernel whatever the rule
+    says (the FMA form timed beside the tensor-core one by chip_smoke.py and
+    scripts/torch_rows_bench.py).  CPU tensors run
+    `hartley_rows_reference`."""
     if a.dim() not in (2, 3):
         raise ValueError(f"hartley_rows: wants (NZ, [NY,] NX), got "
                          f"{tuple(a.shape)}")
@@ -651,15 +701,21 @@ def hartley_rows(a, *, lift: Optional[Config] = None):
     nx = a.shape[-1]
     m = a.numel() // nx
     is_f64 = int(a.dtype == torch.float64)
-    bm, bn, blocks = hartley_rows_grid(m, nx, a.element_size())
     out = torch.empty_like(a)
+    tc = not fma and hartley_rows_tc(a.dtype, nx, _ptr(a), _ptr(out))
+    # (H_hi, H_lo: tensors of their own, aligned)
+    H, H_lo = _cas_split(nx, a) if tc else (_cas(nx, a), None)
+    bm, bn, blocks = hartley_rows_grid(m, nx, a.element_size(), tc)
     p = lift.physics if lift is not None else None
     with torch.cuda.device(a.device):
         _launch(_load()[is_f64].ekpnp_hartley_rows, "hartley_rows_kernel",
-                is_f64, bm, bn, blocks, _ptr(a), _ptr(_cas(nx, a)), _ptr(out),
-                m, nx, int(lift is not None), m // a.shape[0], a.shape[0],
-                p.voltage if p else 0.0, p.voltage2 if p else 0.0,
+                is_f64, int(tc), bm, bn, blocks, _ptr(a), _ptr(H), _ptr(H_lo),
+                _ptr(out), m, nx, int(lift is not None), m // a.shape[0],
+                a.shape[0], p.voltage if p else 0.0,
+                p.voltage2 if p else 0.0,
                 torch.cuda.current_stream(a.device).cuda_stream)
+    if tc:
+        launches["hartley_rows_kernel.tf32x3"] += 1
     return out
 
 

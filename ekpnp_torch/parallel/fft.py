@@ -34,7 +34,9 @@ JAX package's stage order:
 The (y, x) stages take any slab or pencil the mesh divides: a pencil
 shard's NYl rows go over its x group as `tensor_split` cuts them (6/5/5 for
 16 over 3), and each leg back cuts exactly the pieces its leg out joined
-(`_cuts`).  fft3 keeps the JAX package's divisibility checks.
+(`_cuts`); a piece may be empty (NYl 2 over 5 x-shards: 1/1/0/0/0), and
+an empty block passes every 1-D stage unchanged.  fft3 keeps the JAX
+package's divisibility checks.
 
 `hartley_x_local` stays local: x is whole on a slab shard.
 """
@@ -113,6 +115,8 @@ def _y_stage(blocks, mesh, stage):
 
 
 def _fft1(a, axis: int, inverse: bool = False):
+    if a.numel() == 0:  # an empty piece of an uneven cut: torch.fft refuses it
+        return a.to(torch.promote_types(a.dtype, torch.complex64))
     return (torch.fft.ifft if inverse else torch.fft.fft)(a, dim=axis)
 
 

@@ -121,6 +121,15 @@ class _AsyncIO:
             raise self._err
 
 
+def _write_trace(prof, outdir):
+    """Stop the profiler and write its Chrome trace to outdir/trace.json."""
+    prof.stop()
+    os.makedirs(outdir, exist_ok=True)
+    trace = os.path.join(outdir, "trace.json")
+    prof.export_chrome_trace(trace)
+    print(f"  profiler trace written to {trace}")
+
+
 class _NonFinite(RuntimeError):
     """Raised on the writer thread by the finite guard; surfaces at the
     next submit or close (at worst one more chunk runs before the abort)."""
@@ -400,6 +409,13 @@ def _run(args, rank, world):
                  if args.distributed else "")
               + f"; field dumps per shard (fields_NNNNNN.shards/), run "
               f"`merge {args.preset} <outdir>` for data.dat")
+        skipped = [flag for flag, on in (("--vtk", args.vtk),
+                                         ("--save-scalars", args.save_scalars))
+                   if on]
+        if skipped and rank == 0:
+            print(f"WARNING: {' and '.join(skipped)} write nothing under "
+                  f"--mesh (the dumps are per shard); `merge {args.preset} "
+                  f"<outdir> --vtk` writes the VTK files", file=sys.stderr)
 
     outdir = cfg.run.outdir
     os.makedirs(outdir, exist_ok=True)
@@ -583,16 +599,15 @@ def _run(args, rank, world):
             runtime = _clock() - t0
             launches = {k: v for k, v in fs.launches.items() if v}
             if prof is not None:
-                prof.stop()
-                os.makedirs(args.profile, exist_ok=True)
-                trace = os.path.join(args.profile, "trace.json")
-                prof.export_chrome_trace(trace)
-                print(f"  profiler trace written to {trace}")
+                _write_trace(prof, args.profile)
+                prof = None
             t_drain = time.perf_counter()
             aio.close()  # drain the events and dumps before the final zone
             t_drain = time.perf_counter() - t_drain
         except _NonFinite as e:
             print(f"ERROR: {e}; aborting", file=sys.stderr)
+            if prof is not None:  # the trace up to the abort
+                _write_trace(prof, args.profile)
             with contextlib.suppress(_NonFinite):
                 aio.close()  # let the writer finish before the files close
             return 2

@@ -193,9 +193,13 @@ def test_cli_extras_vtk_scalars_profile_merge(tmp_path, capsys):
     assert np.fromfile(one / "rho0002.bin", "<f8").size == 50 * 8 * 51
     trace = json.loads((one / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
-    rc, _, _ = _run(capsys, "run", "reference", *common, "--mesh", "slab",
-                    "--mesh-devices", "2", "--outdir", str(two))
+    rc, _, err = _run(capsys, "run", "reference", *common, "--mesh", "slab",
+                      "--mesh-devices", "2", "--vtk", "--save-scalars",
+                      "--outdir", str(two))
     assert rc == 0
+    # under a mesh the dumps are per shard: said once, nothing written
+    assert err.count("--vtk and --save-scalars write nothing under --mesh") == 1
+    assert not [n for n in os.listdir(two) if n.endswith((".vtk", ".bin"))]
     from ekpnp_torch.run import main
 
     assert main(["merge", "reference", str(two), "--vtk", "--precision",
@@ -263,7 +267,8 @@ def test_cli_warms_before_the_clock(base_runs, tmp_path, capsys, monkeypatch,
 def test_cli_non_finite_on_the_writer_thread_exits_2(tmp_path, capsys,
                                                       monkeypatch):
     """A non-finite state found by the series event (on the writer thread)
-    aborts the run with exit code 2."""
+    aborts the run with exit code 2, and --profile's trace of the loop up
+    to the abort is written all the same."""
     import threading
 
     import ekpnp_torch.diagnostics as diag
@@ -285,7 +290,10 @@ def test_cli_non_finite_on_the_writer_thread_exits_2(tmp_path, capsys,
     monkeypatch.setattr(run, "_host", lambda x, ev, h=run._host: host(x, ev, h))
     rc, stdout, err = _run(capsys, "run", "reference", "--steps", "6",
                            "--outdir", str(tmp_path), "--set", "nsave=3",
-                           "print_current=3")
+                           "print_current=3", "--profile",
+                           str(tmp_path / "prof"))
     assert rc == 2
     assert "non-finite state detected at step 3" in err
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert trace["traceEvents"]
     assert any(t != threading.main_thread().name for t in threads)

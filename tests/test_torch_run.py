@@ -169,16 +169,17 @@ def test_form_resolution_phi_hx_gate_and_row_blocks():
     # the row product's tiles and grid: every output of m rows of nx
     # values once, for m not a multiple of the tile (the kernel's block b
     # takes tile rows b // nc and tile columns b % nc, clipped)
-    assert ROWS_TILE == {4: (128, 128), 8: (128, 64)}
-    for itemsize in (4, 8):
+    # (the tensor-core form, f32, its own tile)
+    assert ROWS_TILE == {4: (128, 128), 8: (128, 64), "tf32x3": (128, 128)}
+    for itemsize, tc in ((4, False), (8, False), (4, True)):
         for nx in (16, 50, 256, 512):
             for m in (1, 127, 255 * 7 + 3):
-                bm, bn, blocks = hartley_rows_grid(m, nx, itemsize)
-                assert (bm, bn) == ROWS_TILE[itemsize]
+                bm, bn, blocks = hartley_rows_grid(m, nx, itemsize, tc)
+                assert (bm, bn) == ROWS_TILE["tf32x3" if tc else itemsize]
                 nc = -(-nx // bn)
                 hits = np.zeros((m, nx), dtype=np.int64)
                 for b in range(blocks):
                     r0, c0 = (b // nc) * bm, (b % nc) * bn
                     assert r0 < m and c0 < nx  # no idle block
                     hits[r0:r0 + bm, c0:c0 + bn] += 1
-                assert (hits == 1).all(), (itemsize, nx, m)
+                assert (hits == 1).all(), (itemsize, tc, nx, m)
