@@ -9,8 +9,10 @@ printing the final line, if any phase fails:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the fused step kernels from csrc/fused_step.cu (nvcc, sm_90a),
      registers and spill stores per kernel (per lattice pair for the
-     collide, the passes and the stream; the row product's tensor-core
-     form hartley_rows_tf32x3_kernel on a line of its own);
+     collide, the passes and the stream, the row-staged shard pass
+     fused_pass_rows_kernel per tile beside the per-node
+     fused_pass_halo_kernel; the row product's tensor-core form
+     hartley_rows_tf32x3_kernel on a line of its own);
   3. kernels vs their plain PyTorch versions on the card: the row product
      alone at NX 10, 16, 25, 50, 256 and 512 on row counts no multiple of
      its tile (plain and lifted, aligned and not), in both forms: in f32
@@ -61,7 +63,13 @@ one card (a mesh may hold a device more than once):
      both, <= 1e-12 (f64) / 1e-5 (f32); 3 sharded chunk steps against 3
      single-device steps on the same route, and against 3 two-launch
      sharded steps (step_halo) bit for bit; the overlapped chunk equal to
-     the serial one bit for bit;
+     the serial one bit for bit (these cases' shards take the per-node
+     shard pass, fused_pass_halo_kernel); then the row-staged shard pass
+     (fused_pass_rows_kernel) at shapes that take it: cases A, C, I, F at
+     NX 256 on slab 2, slab 4, pencil 2x2 and pencil 2x4 (tiles 128 and
+     64), f64 and f32, every form and shard: its launch counted, within
+     the tolerances above of its plain version and equal to the forced
+     per-node pass bit for bit;
   4b. golden: `reference`, f64, one chunk of 60 steps on a slab-2 mesh
      (phi_hx route per shard, its launches counted), rtol 1e-9;
   3c. a mesh whose solve cuts an empty piece: `reference` 4x8x9, f64, fft
@@ -72,12 +80,14 @@ one card (a mesh may hold a device more than once):
      on pencil 2x2 (shard_x route), each held to 20 single-device steps
      (F32_SHARDED) and to 20 two-launch sharded steps bit for bit; on slab
      4 also 10 steps with phi_hx off (hartley_x .halo) and 10 with
-     fft_method "fft" (plain-RHS .halo); each collide form, its fused
-     pass (beside the two launches it replaces) and the stream timed by
-     CUDA events on shard 0 and held to their plain versions there, the
-     row product on shard 0's RHS rows too.  Then the `pod` preset
-     (BASELINE config 5, 512x256x257, f32, every field D3Q27, PB init with
-     pb_omega 0.02): 50 steps on slab 4 and 50 on pencil 2x2 (re-sharded
+     fft_method "fft" (plain-RHS .halo); every shard pass of these runs
+     must be of the row-staged kernel (fused_pass_rows_kernel = the
+     passes); each collide form, its fused pass (beside the two launches
+     it replaces and the forced per-node pass, which must equal it bit for
+     bit) and the stream timed by CUDA events on shard 0 and held to their
+     plain versions there, the row product on shard 0's RHS rows too.
+     Then the `pod` preset (BASELINE config 5, 512x256x257, f32, every
+     field D3Q27, PB init with pb_omega 0.02): 50 steps on slab 4 and 50 on pencil 2x2 (re-sharded
      from the slab run's state), ms/step, MLUPS, per-launch, exchange and
      solve times, launch counts, peak memory;
   5c. the wider meshes at full width: `ek-pnp-thermal` f32 on pencil 2x3
@@ -87,10 +97,12 @@ one card (a mesh may hold a device more than once):
      make_state state of its size: one chunk of 20 steps after 20
      one-device steps on the route (the two one after the other), held
      to them (F32_SHARDED) and to 20 two-launch sharded steps bit for
-     bit, the route's launches counted per chunk and shard; the route's
-     forms timed on shard 0 beside their bounds and held to their plain
-     versions on shard 0 and on the last shard (whose x-neighbours are
-     two different shards on the pencils), exchange, solve, peak memory,
+     bit, the route's launches counted per chunk and shard (every pass
+     row-staged); the route's forms timed on shard 0 beside their bounds
+     and the per-node pass, held to their plain versions and to the
+     per-node pass (bit for bit) on shard 0 and on the last shard (whose
+     x-neighbours are two different shards on the pencils), exchange,
+     solve, peak memory,
      ms/step from a second 20-step chunk (the first pays the mesh's first
      allocations);
   6b. the CLI with `--mesh slab --mesh-devices 4`, 10 steps, then `merge`:
@@ -208,6 +220,7 @@ REPLACES = {
     "fused_pass_kernel.phi_hx.halo": "ekpnp/pallas/fused_step.py:516",
     "fused_pass_kernel.shard_x": "ekpnp/pallas/fused_step.py:521",
     "hartley_rows_kernel.tf32x3": "ekpnp/pallas/fused_step.py:984",
+    "fused_pass_rows_kernel": "ekpnp/pallas/fused_step.py:516",
 }
 # row products per step of each collide form (its collide or fused pass):
 # the RHS (hartley_x); psi and the RHS (phi_hx), and on a slab shard psi's
@@ -217,6 +230,15 @@ ROWS_PER_COLLIDE = {"collide_kernel.hartley_x": 1, "collide_kernel.phi_hx": 2,
                     "collide_kernel.phi_hx.halo": 4}
 # the sharded meshes of phase 3b: (shards, pencil)
 MESHES = {"slab2": (2, False), "slab4": (4, False), "pencil2x2": (4, True)}
+# phase 3b's shapes of the row-staged shard pass (fused_pass_rows_kernel):
+# cases of CASES at NX 256, on slab 2 / slab 4 (shards 256 wide: tile
+# 128, two segments a row), pencil 2x2 (128: one a row) and pencil 2x4
+# (64: two rows a block)
+ROWS_CASES = ("A", "C", "I", "F")
+ROWS_MESHES = {"slab2": (2, False), "slab4": (4, False),
+               "pencil2x2": (4, True), "pencil2x4": (8, True)}
+# the shard passes that took the row-staged kernel count under both names
+ROWS_PASS = "fused_pass_rows_kernel"
 # phase 5c, ek-pnp-thermal at full width on the meshes of a 6- and an
 # 8-card host: name -> (shards, pencil, preset overrides, the route's
 # collide form).  The uneven pencil's one cut: NX 256 -> 192, the nearest
@@ -353,17 +375,20 @@ def phase_build():
     for name in re.findall(r"Compiling entry function '(\w+)'", info["log"]):
         m = re.search(r"(hartley_rows_tf32x3_kernel|hartley_rows_kernel|"
                       r"collide_kernel|fused_pass_kernel|"
-                      r"fused_pass_halo_kernel|stream_bc_halo_kernel|"
-                      r"stream_bc_kernel)"
+                      r"fused_pass_halo_kernel|fused_pass_rows_kernel|"
+                      r"stream_bc_halo_kernel|stream_bc_kernel)"
                       r"I([fd])(?:Li(\d+)ELi(\d+)E)?(?:Li(\d+)E)?"
                       r"(?:Lb([01])E)?", name)
         rest = info["log"][info["log"].index(name):]
         used = re.search(r"Used (\d+) registers", rest)
         spill = re.search(r"(\d+) bytes spill stores", rest)
         if m and used:
-            # .vec: the row product's aligned form, the stream's 16-byte one
+            # .vec: the row product's aligned form, the stream's 16-byte
+            # one; .tw128 / .tw64: the row-staged shard pass's tiles
             vec = m.group(6) == "1" or int(m.group(5) or 1) > 1
-            key = m.group(1) + (".vec" if vec else "") + f" {m.group(2)}"
+            tag = (f".tw{m.group(5)}" if m.group(1) == ROWS_PASS
+                   else ".vec" if vec else "")
+            key = m.group(1) + tag + f" {m.group(2)}"
             r, sp = int(used.group(1)), int(spill.group(1)) if spill else 0
             fam[key] = max(fam.get(key, 0), r)
             fam_spill[key] = max(fam_spill.get(key, 0), sp)
@@ -377,6 +402,11 @@ def phase_build():
     tc = "hartley_rows_tf32x3_kernel f"
     if tc not in fam:
         raise SystemExit("chip_smoke: the build has no hartley_rows_tf32x3_kernel")
+    for t in ("f", "d"):
+        for tw in (128, 64):
+            if f"{ROWS_PASS}.tw{tw} {t}" not in fam:
+                raise SystemExit(f"chip_smoke: the build has no {ROWS_PASS} "
+                                 f"at tile {tw} ({t})")
     log(f"  hartley_rows_tf32x3_kernel (the row product's tensor-core form, "
         f"f32): {fam[tc]} registers, {fam_spill[tc]} B spill stores; the FMA "
         f"form hartley_rows_kernel: " + ", ".join(
@@ -384,7 +414,8 @@ def phase_build():
             f"{fam[k]}/{fam_spill[k]}" for k in sorted(fam)
             if k.startswith("hartley_rows_kernel")))
     for fam_name in ("collide_kernel", "fused_pass_kernel",
-                     "fused_pass_halo_kernel", "stream_bc_kernel",
+                     "fused_pass_halo_kernel", ROWS_PASS + ".tw128",
+                     ROWS_PASS + ".tw64", "stream_bc_kernel",
                      "stream_bc_kernel.vec"):
         log(f"  {fam_name} by type and lattice pair QF/QS: " + ", ".join(
             f"{k.replace(fam_name + ' ', '')} {r}/{sp}"
@@ -616,21 +647,36 @@ def _tc(cfg):
     return cfg.run.dtype == "float32" and cfg.grid.nx % 8 == 0
 
 
-def _route(form, steps, chunks, stream="stream_bc_kernel", tc=False):
+def _route(form, steps, chunks, stream="stream_bc_kernel", tc=False,
+           rows=False):
     """The launches of `steps` steps of collide form `form` in `chunks`
     chunks and their row products: a collide and a stream per chunk and a
     fused pass of the form for every other step; with `tc` every row
     product of the tensor-core form.  On shards, steps and chunks count
     each shard's (steps x shards, chunks x shards), the stream is .halo
-    and the pass the collide form's .halo / .shard_x."""
+    and the pass the collide form's .halo / .shard_x; with `rows` every
+    shard pass of the row-staged kernel (`_rows_path`)."""
     want = {form: chunks, stream: chunks}
     if steps > chunks:
         want[fused_name(form)] = steps - chunks
+        if rows:
+            want[ROWS_PASS] = steps - chunks
     if ROWS_PER_COLLIDE.get(form):
         want[ROWS_FMA] = ROWS_PER_COLLIDE[form] * steps
         if tc:
             want[ROWS_TC] = want[ROWS_FMA]
     return want
+
+
+def _rows_path(cfg, mesh):
+    """Whether the shard passes of `cfg` on `mesh` take the row-staged
+    fused_pass_rows_kernel (the wrapper's rule by shape: every sharded
+    tensor of the port is one of its own, 16-byte aligned)."""
+    from ekpnp_torch.kernels.fused_step import shard_pass_tile
+    from ekpnp_torch.parallel.mesh import local_cfg
+
+    g = local_cfg(cfg, mesh).grid
+    return shard_pass_tile(g.ny, g.nx) > 0
 
 
 def _want_launches(counts, label, **want):
@@ -1298,6 +1344,73 @@ def phase_sharded_kernels_vs_plain():
         "pass, slab 2 / slab 4 / pencil 2x2), chunks vs one device: within "
         "1e-12 (f64) / 1e-5 (f32); chunks = two-launch steps and overlapped "
         "= serial, bit for bit")
+    for key, e in rows_pass_vs_plain().items():
+        worst[key] = max(worst.get(key, 0.0), e)
+    return worst
+
+
+def rows_pass_vs_plain():
+    """3b, the row-staged shard pass: ROWS_CASES at NX 256 (NY at least
+    16) on ROWS_MESHES, f64 and f32, every pass form on every shard: the
+    launch takes fused_pass_rows_kernel (counted), equals its plain
+    version within TOL and the forced per-node fused_pass_halo_kernel bit
+    for bit."""
+    import torch
+
+    import ekpnp_torch
+    from ekpnp_torch.kernels import fused_step as fs
+    from ekpnp_torch.parallel.halo import post_edges
+    from ekpnp_torch.parallel.mesh import local_cfg, make_mesh, shard_state
+
+    worst = {}
+    for dtype in ("float64", "float32"):
+        for seed, case in enumerate(ROWS_CASES):
+            name, ov = CASES[case]
+            cfg = ekpnp_torch.preset(name, dtype=dtype, **dict(
+                ov, nx=256, ny=max(16, ov["ny"])))
+            st = make_state(cfg, seed=40 + seed, device="cuda")
+            for mname, (n, pencil) in ROWS_MESHES.items():
+                mesh = make_mesh(["cuda"] * n, pencil=pencil)
+                cfg_l = local_cfg(cfg, mesh)
+                sh = shard_state(cfg, mesh, st)
+                for kname, kw in _shard_forms(cfg, mesh):
+                    ins, halos = _shard_inputs(cfg, mesh, sh, kw)
+                    posts = [fs.collide(cfg_l, *x, phi_halo=h, **kw)[:4]
+                             for x, h in zip(ins, halos)]
+                    label = f"{case} {dtype} {mname} {fused_name(kname, mesh)}"
+                    for x, h, p, (r, c) in zip(ins, halos, posts, post_edges(
+                            cfg_l, mesh, posts)):
+                        args = dict(rows=r, cols=c, phi_halo=h, **kw)
+                        n0 = fs.launches[ROWS_PASS]
+                        got = fs.fused_pass(cfg_l, *p, x[4], **args)
+                        if fs.launches[ROWS_PASS] != n0 + 1:
+                            raise SystemExit(f"chip_smoke: {label}: the pass "
+                                             f"did not take {ROWS_PASS}")
+                        pn = fs.fused_pass(cfg_l, *p, x[4], per_node=True,
+                                           **args)
+                        if not all(torch.equal(a, b) for a, b in zip(got, pn)
+                                   if a is not None):
+                            raise SystemExit(f"chip_smoke: {label}: the "
+                                             f"row-staged pass != the "
+                                             f"per-node pass")
+                        e = max(rel_err(a, b) for a, b in zip(
+                            got, fs.fused_pass_reference(cfg_l, *p, x[4],
+                                                         **args))
+                            if b is not None)
+                        if e > TOL[dtype]:
+                            raise SystemExit(f"chip_smoke: {label}: rel err "
+                                             f"{e:.3e} > {TOL[dtype]}")
+                        for k in (ROWS_PASS, fused_name(kname, mesh)):
+                            worst[(dtype, k)] = max(worst.get((dtype, k), 0.0),
+                                                    e)
+                del sh
+            del st
+    torch.cuda.synchronize()
+    log(f"(3b) the row-staged shard pass ({ROWS_PASS}), cases "
+        f"{'/'.join(ROWS_CASES)} at NX 256 on {' / '.join(ROWS_MESHES)} "
+        f"(tiles 128 and 64), every form and shard: = the per-node pass bit "
+        f"for bit; vs plain max f64 {fmt_err(worst[('float64', ROWS_PASS)])}"
+        f", f32 {fmt_err(worst[('float32', ROWS_PASS)])}")
     return worst
 
 
@@ -1319,7 +1432,8 @@ def phase_sharded_golden():
     state = make_sharded_multi_step(cfg, mesh, 60)(state)
     _want_launches(dict(fs.launches), "sharded golden run",
                    **_route("collide_kernel.phi_hx.halo", 120, 2,
-                            "stream_bc_kernel.halo"))
+                            "stream_bc_kernel.halo",
+                            rows=_rows_path(cfg, mesh)))
     return _golden_devs(cfg, gather_state(mesh, state),
                         "golden through a slab-2 mesh (reference, f64, 60 "
                         "steps, phi_hx .halo route)")
@@ -1391,7 +1505,11 @@ def time_sharded(cfg, mesh, state, bw, route=None, also=None):
     column repair, all shards.  route: the one collide form to take (else
     every form of `_shard_forms`); the stream and the exchange run on the
     first form's set.  also: one more shard on which every form is held to
-    its plain version (its error counts with shard 0's)."""
+    its plain version (its error counts with shard 0's).  Where the shard
+    passes take the row-staged kernel (`_rows_path`), each pass is also
+    held to the forced per-node pass bit for bit (on `also` too) and the
+    per-node pass timed beside it; the last pass form's numbers stand for
+    fused_pass_rows_kernel."""
     import torch
 
     from ekpnp_torch.kernels import fused_step as fs
@@ -1407,8 +1525,19 @@ def time_sharded(cfg, mesh, state, bw, route=None, also=None):
                         for t in ts if t is not None)
     res = dict(kernel_ms={}, plain_ms={}, library_ms={}, bound_ms={},
                bound_by={}, bound_design_ms={}, rel_err={}, abs_err={},
-               other_ms={}, two_launch_ms={})
+               other_ms={}, two_launch_ms={}, per_node_ms={})
     peak = PEAK[cfg.run.dtype]
+    rows_path = _rows_path(cfg, mesh)
+
+    def same_as_per_node(k, got, args):
+        """the row-staged pass `got` against the forced per-node pass on
+        the same inputs, bit for bit; returns the per-node outputs"""
+        pn = fs.fused_pass(cfg_l, *args, per_node=True, **pk)
+        if not all(torch.equal(a, b) for a, b in zip(got, pn)
+                   if a is not None):
+            raise SystemExit(f"chip_smoke: {k} on {cfg_l.grid.shape}: the "
+                             f"row-staged pass != the per-node pass")
+        return pn
 
     def bound(k, nbytes, ops, pk=None):
         tb, to = nbytes / bw * 1e3, ops / (pk or peak) * 1e3
@@ -1463,6 +1592,12 @@ def time_sharded(cfg, mesh, state, bw, route=None, also=None):
         res["kernel_ms"][fp] = _events_ms(
             lambda: fs.fused_pass(cfg_l, *post[:4], x[4], out=got[:4], **pk),
             10)
+        if rows_path:  # the per-node pass: the same bits, and its time
+            pn = same_as_per_node(fp, got, (*post[:4], x[4]))
+            res["per_node_ms"][fp] = _events_ms(
+                lambda: fs.fused_pass(cfg_l, *post[:4], x[4], out=pn[:4],
+                                      per_node=True, **pk), 10)
+            del pn
         edges = [t for e in (rows, cols) if e for pair in e if pair
                  for t in pair]
         bound(fp, nb(x) + nb(h) + nb(post) + nb(edges), ops)
@@ -1480,9 +1615,12 @@ def time_sharded(cfg, mesh, state, bw, route=None, also=None):
                 cfg_l, *xa, phi_halo=ha, **kw))
             rows, cols = post_edges(cfg_l, mesh, [p[:4] for p in posts])[also]
             pk = dict(rows=rows, cols=cols, phi_halo=ha, **kw)
-            check(fp, fs.fused_pass(cfg_l, *posts[also][:4], xa[4], **pk),
-                  fs.fused_pass_reference(cfg_l, *posts[also][:4], xa[4],
-                                          **pk))
+            ga = fs.fused_pass(cfg_l, *posts[also][:4], xa[4], **pk)
+            check(fp, ga, fs.fused_pass_reference(cfg_l, *posts[also][:4],
+                                                  xa[4], **pk))
+            if rows_path:
+                same_as_per_node(fp, ga, (*posts[also][:4], xa[4]))
+            del ga
             if not mesh.pencil and posts[also][4] is not None:
                 ra = posts[also][4]
                 for k, fma in ((ROWS_TC, False), (ROWS_FMA, True)):
@@ -1545,6 +1683,11 @@ def time_sharded(cfg, mesh, state, bw, route=None, also=None):
     for fp, kname in passes:  # the collide form and the stream it replaces
         res["two_launch_ms"][fp] = (res["kernel_ms"][kname]
                                     + res["kernel_ms"]["stream_bc_kernel.halo"])
+    if rows_path:  # the row-staged kernel: the numbers of the last pass form
+        fp = passes[-1][0]
+        for part in res.values():
+            if isinstance(part, dict) and fp in part:
+                part[ROWS_PASS] = part[fp]
     torch.cuda.empty_cache()
     return res
 
@@ -1560,6 +1703,9 @@ def _log_sharded(label, res, ms_step, bw):
         two = (f", the two launches it replaces "
                f"{res['two_launch_ms'][k]:.3f} ms"
                if k in res["two_launch_ms"] else "")
+        if k in res["per_node_ms"]:
+            two += (f", the per-node pass {res['per_node_ms'][k]:.3f} ms "
+                    f"(same bits)")
         log(f"  {label} {k} (shard 0): {v:.3f} ms (bound "
             f"{res['bound_ms'][k]:.3f}, {res['bound_by'][k]}{des}){pl}{lib}"
             f"{two}")
@@ -1601,7 +1747,7 @@ def phase_sharded_main(bw, start):
         _want_launches(runs[0], label, **_route(form, steps * 4,
                                                 len(chunks) * 4,
                                                 "stream_bc_kernel.halo",
-                                                tc=_tc(cfg)))
+                                                tc=_tc(cfg), rows=True))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         two = _shard_steps(cfg, mesh, shard_state(cfg, mesh, s0), steps)
         if not _shards_equal(sh, two):
@@ -1636,7 +1782,7 @@ def phase_sharded_main(bw, start):
                 _want_launches(runs[-1], f"{label} {sub}",
                                **_route(sform, 40, len(c) * 4,
                                         "stream_bc_kernel.halo",
-                                        tc=_tc(cfg)))
+                                        tc=_tc(cfg), rows=True))
                 other[sub] = c[-1] * 1e3
         res = time_sharded(cfg, mesh, sh, bw)
         ms_step = chunks[-1] * 1e3
@@ -1701,7 +1847,7 @@ def phase_wide_meshes(bw):
         counts = dict(fs.launches)
         _want_launches(counts, label, **_route(form, steps * n, len(chunks) * n,
                                                "stream_bc_kernel.halo",
-                                               tc=_tc(cfg)))
+                                               tc=_tc(cfg), rows=True))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         two = _shard_steps(cfg, mesh, shard_state(cfg, mesh, s0), steps)
         if not _shards_equal(sh, two):
@@ -1728,7 +1874,7 @@ def phase_wide_meshes(bw):
         counts2 = dict(fs.launches)
         _want_launches(counts2, label + " again", **_route(
             form, steps * n, len(again) * n, "stream_bc_kernel.halo",
-            tc=_tc(cfg)))
+            tc=_tc(cfg), rows=True))
         res = time_sharded(cfg, mesh, sh, bw, route=form, also=n - 1)
         ms_step = again[-1] * 1e3
         mlups = cfg.grid.num_nodes / (again[-1] * 1e6)
@@ -1780,7 +1926,7 @@ def phase_pod(bw):
         counts = dict(fs.launches)
         _want_launches(counts, label, **_route(form, 200, len(chunks) * 4,
                                                "stream_bc_kernel.halo",
-                                               tc=_tc(cfg)))
+                                               tc=_tc(cfg), rows=True))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
         res = time_sharded(cfg, mesh, sh, bw)
@@ -1932,7 +2078,8 @@ def phase_distributed():
             _want_launches(counts, label, **_route(
                 "collide_kernel.phi_hx.halo", (steps - 1) * per,
                 _cli_chunks(steps, nsave, ncur) * per,
-                "stream_bc_kernel.halo", tc=prec == "f32"))
+                "stream_bc_kernel.halo", tc=prec == "f32",
+                rows=size == "full"))
             res["launches"].append(counts)
             return out, text
 
@@ -2468,9 +2615,16 @@ def main():
             if k in cell["two_launch_ms"]:  # a shard's fused pass
                 row.update(two_launch_ms=cell["two_launch_ms"][k],
                            two_launch_ms_pod=pod[mname]["two_launch_ms"][k])
+            if k in cell["per_node_ms"]:  # the same pass, per-node kernel
+                row.update(per_node_ms=cell["per_node_ms"][k],
+                           per_node_ms_pod=pod[mname]["per_node_ms"][k])
         # phase 5c: shard 0 of each wider mesh whose route takes the form
         wide = {m: c for m, c in report["wide"].items() if k in c["kernel_ms"]}
         if wide:
+            pn = {m: c["per_node_ms"][k] for m, c in wide.items()
+                  if k in c["per_node_ms"]}
+            if pn:
+                row.update(per_node_ms_wide=pn)
             row.update(ms_wide={m: c["kernel_ms"][k] for m, c in wide.items()},
                        bound_ms_wide={m: c["bound_ms"][k]
                                       for m, c in wide.items()},

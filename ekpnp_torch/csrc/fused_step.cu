@@ -39,7 +39,9 @@
 //                     collide takes are the two-launch step's; every node
 //                     runs the same operations in the same order, so a
 //                     chunk equals its two-launch steps bit for bit.
-//   fused_pass_halo_kernel  the same pass on a shard (below).
+//   fused_pass_rows_kernel, fused_pass_halo_kernel  the same pass on a
+//                     shard (below): row-staged where the shard's rows are
+//                     whole tiles, else per node.
 //   stream_bc_kernel  one thread per 4 nodes of a row in f32 (2 in f64;
 //                     one where NX is no multiple): pull post[d, z-ez,
 //                     y-ey, x-ex] through the pass's pull tables (PullSrc),
@@ -91,10 +93,17 @@
 //     is NXl + 2 wide and its end values are the diagonal shard's corners.
 //     A pulled value is collided in registers at once, so nothing repairs
 //     the columns after a pass: they must be right when pulled.  Its own
-//     kernel, the one-device pass's body with another source: the edge
+//     kernels, the one-device pass's body with another source: the edge
 //     selects in the one-device pass would cost it (as they cost the
-//     one-device stream 8-12 %, PERF.md); interior nodes stage through
-//     PullSrc's tables, only edge nodes through the selects;
+//     one-device stream 8-12 %, PERF.md).  fused_pass_rows_kernel, where
+//     NX is a multiple of 128 or 64 (every production shard): a block
+//     stages whole source row segments, each with the value either side
+//     of it, by 16-byte cp.async, the choice among the shard's rows, the
+//     halo rows, the wrap and the halo columns made once per slot and
+//     segment, and each thread reads its pulls shifted by -ex from shared
+//     memory; fused_pass_halo_kernel, per node, for other shapes: interior
+//     nodes stage through PullSrc's tables, edge nodes through the
+//     selects;
 //   - stream_bc_halo_kernel, a chunk's last launch, pulls across the y
 //     edges from the rows (PostSrc); x wraps locally and on a pencil the
 //     host repairs the two wrap columns afterwards (fix_x_columns).
@@ -114,7 +123,10 @@
 // 55 KB a block all-D3Q27 f32, dynamic shared memory), which puts all of a
 // thread's loads in flight without holding registers and serves both reads
 // from shared memory.  A direct version reading device memory twice took
-// nearly twice as long (PERF.md); the collide stages its values too.
+// nearly twice as long (PERF.md); the collide stages its values too, and
+// the row-staged shard pass stages whole row segments in 16-byte pieces
+// and shifts them in shared memory (132 values a slot: 57 KB a block, 4
+// blocks an SM, as here).
 // Constants are folded in double on the host and cast to T, as the TPU
 // kernel's cst() does.  The x-Hartley products add 2 NX operations per RHS
 // value and per decoded phi value, and each sends its rows through device
@@ -385,6 +397,22 @@ __device__ __forceinline__ int x_slot(int d) {
   return tab[d];
 }
 
+// The same tables for a direction known only at run time (the row-staged
+// pass's copy loop walks its slots without unrolling): (ex, ey, ez,
+// edge_slot, x_slot) of each direction, dir_e's and the slot tables'
+// values (tests/test_torch_shard_staging.py holds them equal).  In
+// constant memory: a warp reads one entry at a time.
+__constant__ signed char kRowDir[27][5] = {
+    {0, 0, 0, 0, 0},    {1, 0, 0, 0, 0},    {-1, 0, 0, 0, 0},
+    {0, 1, 0, 0, 0},    {0, -1, 0, 0, 0},   {0, 0, 1, 0, 0},
+    {0, 0, -1, 0, 0},   {1, 1, 0, 1, 1},    {-1, -1, 0, 1, 1},
+    {1, 0, 1, 0, 2},    {-1, 0, -1, 0, 2},  {0, 1, 1, 2, 0},
+    {0, -1, -1, 2, 0},  {1, -1, 0, 3, 3},   {-1, 1, 0, 3, 3},
+    {1, 0, -1, 0, 4},   {-1, 0, 1, 0, 4},   {0, 1, -1, 4, 0},
+    {0, -1, 1, 4, 0},   {1, 1, 1, 5, 5},    {-1, -1, -1, 5, 5},
+    {1, 1, -1, 6, 6},   {-1, -1, 1, 6, 6},  {1, -1, 1, 7, 7},
+    {-1, 1, -1, 7, 7},  {-1, 1, 1, 8, 8},   {1, -1, -1, 8, 8}};
+
 // One field's post-collision set on a shard and the neighbours' edge data
 // its pulls read across the shard's edges, each (n, NZ, ...) holding only
 // the n directions that pull across that edge, in direction order (slots
@@ -567,6 +595,58 @@ struct ShardStagedSrc {
                                                  int64_t) const {
     return ShardStaged<T>{WallRule(P, k, z),
                           slots + slot_base<T, QF, QS>(P, k) * kThreads};
+  }
+};
+
+// The row-staged shard pass (fused_pass_rows_kernel): a block is the
+// kThreads nodes n0 .. n0 + kThreads - 1 of one plane, kThreads / TW whole
+// row segments of TW nodes (TW = 128: a piece of one row; TW = 64: two
+// rows of a 64-wide shard).  Slot s of its shared memory holds, at stride
+// S = kRowsStride, the source row segment of each of its segments, and
+// the value left (x0 - 1) and right (x0 + TW) of it: segment r's TW values
+// at s S + 4 + r TW .. (16-byte aligned in f32 and f64); at TW = 128 the
+// left value at s S + 3 and the right one at s S + 4 + 128, offset 0 of
+// the next slot (one value past the last slot), so that thread t reads
+// direction d's pulled value at s S + 4 + t - ex; at TW = 64 segment r's
+// left value at s S + 2 r and its right one at s S + 2 r + 1 (two
+// segments with their neighbours laid end to end would not fit 132
+// values with both aligned), so that a thread at its segment's end reads
+// there (p = t % TW = 0 and ex = +1, p = TW - 1 and ex = -1), the others
+// at s S + 4 + t - ex: each thread works its two shifted places out once,
+// and a read picks one of three pointers by ex, known where the read is
+// unrolled.  At a scalar's wall node, where the slot holds the node's own
+// row of the opposite direction, every thread reads at s S + 4 + t, with
+// the wall rule on the read.
+constexpr int kRowsStride = kThreads + 4;
+
+template <typename T, int TW>
+struct RowStaged {
+  WallRule w;
+  const T* s0;  // direction 0's value at this thread's x
+  const T* sp;  // at x - 1 (ex = +1), TW = 64
+  const T* sm;  // at x + 1 (ex = -1), TW = 64
+  __device__ __forceinline__ T operator()(const Params<T>& P, int d) const {
+    const int ex = dir_e(d, 0);
+    if constexpr (TW == kThreads) {
+      return w.fix(P, d, s0[d * kRowsStride - (w.wall ? 0 : ex)]);
+    } else {
+      const T* const b = ex > 0 ? sp : (ex < 0 ? sm : s0);
+      return w.fix(P, d, b[d * kRowsStride]);
+    }
+  }
+};
+
+template <typename T, int QF, int QS, int TW>
+struct RowStagedSrc {
+  const T* smem;
+  int t, op, om;  // the thread's places in a slot at ex = 0, +1, -1
+  __device__ __forceinline__ RowStaged<T, TW> view(const Params<T>& P,
+                                                   int k, int z, int, int,
+                                                   int64_t) const {
+    const WallRule w(P, k, z);
+    const T* const s = smem + slot_base<T, QF, QS>(P, k) * kRowsStride;
+    return RowStaged<T, TW>{w, s + t, s + (w.wall ? t : op),
+                            s + (w.wall ? t : om)};
   }
 };
 
@@ -1763,6 +1843,152 @@ fused_pass_halo_kernel(
   if (P.ek && z >= 1 && z <= P.nz - 2) rhs[idx - plane] = r;
 }
 
+// Copy the source row segments of a row-staged block (its nodes n0 ..
+// n0 + kThreads - 1 in plane z, from q0 = n0 - z NY NX on: segment r is
+// TW nodes of row y_r from x0_r on) into its slots (RowStaged's layout).
+// Warp w copies slots w, w + 4, ..., its lanes split evenly over the
+// segments: everything about a segment's slot is the same for its lanes,
+// worked out once per slot from z and the segment's row (ShardPulled's
+// rules, the choice of source made per slot and segment):
+//   - a scalar's wall node: the segment's own row of direction opp(d);
+//   - else the source row (z - ez, y - ey) with the plane rules (the
+//     periodic z wrap; zerograd-top: an ion read of plane NZ-1 takes NZ-2,
+//     and the ions' top plane pulls from NZ-2): the shard's own row, or
+//     beyond its y edge the neighbour's row in the lo / hi buffer (slot
+//     edge_slot(d); on a pencil NX + 2 wide, columns -1 .. NX);
+//   - the value left of the segment (read at ex = +1) and right of it (ex
+//     = -1): the row's own neighbours, at the row's ends the local wrap
+//     (slab), the x-neighbour's column in the xlo / xhi buffer (pencil,
+//     slot x_slot(d)), or in a pencil's row buffer its corner values.
+// The segment goes in aligned 16-byte pieces; a pencil's row buffers start
+// one value past their columns' -1, so theirs go value by value (2 rows
+// of NY, 9 of 27 directions).
+template <int QF, int QS, int TW, typename T>
+__device__ __forceinline__ void stage_rows(const Params<T>& P,
+                                           const ShardSrc<T>& src, int z,
+                                           int q0, int64_t N, T* smem) {
+  constexpr int VW = (int)(16 / sizeof(T));  // values a 16-byte piece
+  constexpr int NP = TW / VW;                // pieces a segment
+  constexpr int LPS = 32 * TW / kThreads;    // lanes a segment
+  constexpr int LH = NP % LPS, RH = (NP + 1) % LPS;  // the halo copies'
+  static_assert(kThreads % TW == 0 && TW % VW == 0 && LPS >= 2,
+                "whole segments, whole pieces");
+  const int lane = threadIdx.x % 32, r = lane / LPS, sub = lane % LPS;
+  const int qr = q0 + r * TW;  // the segment's first node in the plane
+  const int y = qr / P.nx, x0 = qr - y * P.nx;
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const bool pencil = src.e[0].xlo != nullptr;
+  const int rw = pencil ? P.nx + 2 : P.nx, xoff = pencil ? 1 : 0;
+  const bool top = z == P.nz - 1;
+  const int b1 = slot_base<T, QF, QS>(P, 1), b2 = slot_base<T, QF, QS>(P, 2),
+            b3 = slot_base<T, QF, QS>(P, 3);
+  const int n = slot_count<T, QF, QS>(P);
+  for (int s = threadIdx.x / 32; s < n; s += kThreads / 32) {
+    // the field and direction of slot s (slot_base's order)
+    const int k = s < QF ? 0 : (s < b2 ? 1 : (s < b3 ? 2 : 3));
+    const int d = s - (k == 0 ? 0 : (k == 1 ? b1 : (k == 2 ? b2 : b3)));
+    const ShardEdges<T> e =
+        k == 0 ? src.e[0] : (k == 1 ? src.e[1] : (k == 2 ? src.e[2] : src.e[3]));
+    const int ex = kRowDir[d][0], ey = kRowDir[d][1], ez = kRowDir[d][2];
+    const bool zg = (k == 1 || k == 2) && P.cbc == 2;
+    const bool wall = k > 0 && (z == 0 || top) && !(zg && top);
+    const T* row;    // the segment's source, x0 .. x0 + TW - 1
+    const T* left;   // x0 - 1
+    const T* right;  // x0 + TW
+    bool vec = true;
+    if (wall) {
+      row = e.post + dir_opp(d) * N + z * plane + (int64_t)y * P.nx + x0;
+      left = right = row;  // not copied
+    } else {
+      const int raw = ez > 0 ? (z == 0 ? P.nz - 1 : z - 1)
+                             : (ez < 0 ? (top ? 0 : z + 1) : z);
+      const int zs = zg && (top || raw == P.nz - 1) ? P.nz - 2 : raw;
+      const int sy = y - ey;
+      if (sy >= 0 && sy < P.ny) {
+        const T* const r0 = e.post + d * N + zs * plane + (int64_t)sy * P.nx;
+        const T* const col =
+            pencil ? (ex > 0 ? e.xlo : e.xhi)
+                         + ((int64_t)kRowDir[d][4] * P.nz + zs) * P.ny + sy
+                   : r0;
+        row = r0 + x0;
+        left = x0 > 0 ? row - 1 : (pencil ? col : r0 + P.nx - 1);
+        right = x0 + TW < P.nx ? row + TW : (pencil ? col : r0);
+      } else {
+        const T* const r0 = (ey > 0 ? e.lo : e.hi)
+                            + ((int64_t)kRowDir[d][3] * P.nz + zs) * rw
+                            + xoff;
+        row = r0 + x0;
+        left = x0 > 0 || pencil ? row - 1 : r0 + P.nx - 1;
+        right = x0 + TW < P.nx || pencil ? row + TW : r0;
+        vec = !pencil;
+      }
+    }
+    T* const slot = smem + s * kRowsStride;
+    T* const seg = slot + 4 + r * TW;
+    if (vec) {
+      for (int i = sub; i < NP; i += LPS)
+        cp_async<16>(seg + i * VW, row + i * VW, true);
+    } else {
+      for (int i = sub; i < TW; i += LPS)
+        cp_async<(int)sizeof(T)>(seg + i, row + i, true);
+    }
+    if (!wall && ex > 0 && sub == LH)
+      cp_async<(int)sizeof(T)>(TW == kThreads ? seg - 1 : slot + 2 * r,
+                               left, true);
+    if (!wall && ex < 0 && sub == RH)
+      cp_async<(int)sizeof(T)>(TW == kThreads ? seg + TW : slot + 2 * r + 1,
+                               right, true);
+  }
+}
+
+// The shard pass, row-staged: the redesign of fused_pass_halo_kernel for
+// shards whose rows are whole segments of TW = 128 or 64 nodes (NX a
+// multiple of TW, a plane a multiple of kThreads nodes) with 16-byte
+// aligned fields.  A block is kThreads nodes of one plane, flat 128-thread
+// blocks as the per-node pass: one row segment at TW = 128, two rows at
+// TW = 64 (pencil 2x3 and 2x4's 64-wide shards).  z, the wall rule and
+// zerograd-top's plane substitution are the block's, and whether a
+// direction's source row is the shard's or a halo row is the same for
+// all of a segment's threads.  The block first copies, for each active
+// (field, direction), each segment's source row segment with its two
+// neighbours into one slot (stage_rows: aligned 16-byte cp.async pieces,
+// one value each for the halo values and a pencil's unaligned row
+// buffers), then each thread reads its pulled values from there at its x
+// shifted by -ex (RowStagedSrc) and runs collide_node on them: the same
+// values, operations and order as fused_pass_halo_kernel, so the same
+// bits.  The z=0 block's plane-1 reads for the wall velocity go through
+// ShardSrc, as there: these 108 device-memory loads, issued together, are
+// what takes the all-D3Q27 f32 build past its 128 registers (PERF.md).
+// Dynamic shared memory: (slots x kRowsStride + 1) values, 57,028 B
+// all-D3Q27 in f32: 4 blocks an SM, as the per-node pass (2 in f64).
+// `post`, its edge buffers and the outputs must not alias.
+template <typename T, int QF, int QS, int TW>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 4 : 2)
+fused_pass_rows_kernel(
+    const Params<T> P, const ShardSrc<T> post, const T* __restrict__ phi_,
+    const PhiHalo<T> halo, T* __restrict__ pf, T* __restrict__ ph,
+    T* __restrict__ phn, T* __restrict__ pg, T* __restrict__ rhs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  const int64_t plane = (int64_t)P.ny * P.nx;
+  const int64_t N = plane * P.nz;
+  const int64_t n0 = (int64_t)blockIdx.x * kThreads;
+  const int z = (int)(n0 / plane);
+  const int q0 = (int)(n0 - z * plane);
+  stage_rows<QF, QS, TW>(P, post, z, q0, N, smem);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // a thread reads values other threads copied
+  const int t = threadIdx.x, r = t / TW, p = t % TW;
+  const int y = (q0 + t) / P.nx, x = q0 + t - y * P.nx;
+  const RowStagedSrc<T, QF, QS, TW> src{
+      smem, 4 + t, p == 0 ? 2 * r : 3 + t, p == TW - 1 ? 2 * r + 1 : 5 + t};
+  const PhiSrc<T> phi(phi_, halo, P.ny, P.nx);
+  const T v = collide_node<T, QF, QS>(P, src, post, phi, pf, ph, phn, pg, z,
+                                      y, x, N, n0 + t);
+  if (P.ek && z >= 1 && z <= P.nz - 2) rhs[n0 + t - plane] = v;
+}
+
 inline unsigned blocks_for(const HostInts& I) {
   const int64_t n = (int64_t)I.nx * I.ny * I.nz;
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -1839,19 +2065,57 @@ int launch_fused_pass(const HostInts& I, const HostConsts& C,
   return (int)cudaGetLastError();
 }
 
+// The row-staged shard pass at tile TW over `blocks` blocks.
+template <typename T, int QF, int QS, int TW>
+int launch_fused_pass_rows(const HostInts& I, const HostConsts& C,
+                           const ShardSrc<T>& src, const void* const* phi,
+                           void* pf, void* ph, void* phn, void* pg, void* rhs,
+                           int64_t blocks, cudaStream_t s) {
+  const size_t smem =
+      ((size_t)slots_of(I, QF, QS) * kRowsStride + 1) * sizeof(T);
+  auto kern = fused_pass_rows_kernel<T, QF, QS, TW>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)blocks, kThreads, smem, s>>>(
+      make_params<T>(I, C), src, (const T*)phi[0], make_halo<T>(phi),
+      (T*)pf, (T*)ph, (T*)phn, (T*)pg, (T*)rhs);
+  return (int)cudaGetLastError();
+}
+
 // A shard's pass: post {post, lo, hi, xlo, xhi} per field (ShardEdges;
-// xlo, xhi null on a slab), phi {phi, ylo, yhi, xlo, xhi}.
+// xlo, xhi null on a slab), phi {phi, ylo, yhi, xlo, xhi}.  tile: 0 the
+// per-node fused_pass_halo_kernel, 128 or 64 the row-staged
+// fused_pass_rows_kernel at that tile, which needs NX a multiple of the
+// tile, a plane a multiple of kThreads nodes and 16-byte aligned fields
+// (on a slab their row buffers too): -2 otherwise (the wrapper's
+// shard_pass_tile chooses).
 template <typename T, int QF, int QS>
 int launch_fused_pass_halo(const HostInts& I, const HostConsts& C,
                            const void* const* post, const void* const* phi,
                            void* pf, void* ph, void* phn, void* pg, void* rhs,
-                           cudaStream_t s) {
+                           int tile, cudaStream_t s) {
   ShardSrc<T> src;
   for (int k = 0; k < 4; ++k)
     src.e[k] = ShardEdges<T>{(const T*)post[5 * k], (const T*)post[5 * k + 1],
                              (const T*)post[5 * k + 2],
                              (const T*)post[5 * k + 3],
                              (const T*)post[5 * k + 4]};
+  if (tile != 0) {
+    bool ok = (tile == 128 || tile == 64) && I.nx % tile == 0
+              && (int64_t)I.ny * I.nx % kThreads == 0;
+    const bool pencil = src.e[0].xlo != nullptr;
+    for (int k = 0; k < 4; ++k)
+      ok = ok && aligned16(src.e[k].post)
+           && (pencil || (aligned16(src.e[k].lo) && aligned16(src.e[k].hi)));
+    const int64_t blocks = (int64_t)I.nx * I.ny * I.nz / kThreads;
+    if (!ok || blocks < 1 || blocks > 0x7fffffff) return -2;
+    return tile == 128
+               ? launch_fused_pass_rows<T, QF, QS, 128>(
+                     I, C, src, phi, pf, ph, phn, pg, rhs, blocks, s)
+               : launch_fused_pass_rows<T, QF, QS, 64>(
+                     I, C, src, phi, pf, ph, phn, pg, rhs, blocks, s);
+  }
   const size_t smem = (size_t)slots_of(I, QF, QS) * kThreads * sizeof(T);
   auto kern = fused_pass_halo_kernel<T, QF, QS>;
   const cudaError_t e = cudaFuncSetAttribute(
@@ -1975,11 +2239,11 @@ template <typename T>
 int fused_pass_halo_any(const HostInts& I, const HostConsts& C,
                         const void* const* post, const void* const* phi,
                         void* pf, void* ph, void* phn, void* pg, void* rhs,
-                        cudaStream_t s) {
+                        int tile, cudaStream_t s) {
 #define EKPNP_CASE(QF_, QS_)                                               \
   if (I.qf == QF_ && I.qs == QS_)                                          \
     return launch_fused_pass_halo<T, QF_, QS_>(I, C, post, phi, pf, ph,    \
-                                               phn, pg, rhs, s);
+                                               phn, pg, rhs, tile, s);
   EKPNP_LATTICE_PAIRS(EKPNP_CASE)
 #undef EKPNP_CASE
   return -1;
@@ -2072,16 +2336,19 @@ int ekpnp_fused_pass(int is_f64, const int* ints, const double* consts,
 
 // A shard's pass: post {post, lo, hi, xlo, xhi} for f, h, hn, g in turn
 // (ShardEdges; all null for an inactive field, xlo / xhi null on a slab);
-// phi {phi, ylo, yhi, xlo, xhi} as ekpnp_collide takes it.
+// phi {phi, ylo, yhi, xlo, xhi} as ekpnp_collide takes it; tile: 0 the
+// per-node fused_pass_halo_kernel, 128 or 64 the row-staged
+// fused_pass_rows_kernel (-2 where the shard cannot take it).
 int ekpnp_fused_pass_shard(int is_f64, const int* ints, const double* consts,
                            const void* const* post, const void* const* phi,
                            void* pf, void* ph, void* phn, void* pg,
-                           void* rhs, void* stream) {
+                           void* rhs, int tile, void* stream) {
   const HostInts& I = *reinterpret_cast<const HostInts*>(ints);
   const HostConsts& C = *reinterpret_cast<const HostConsts*>(consts);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (is_f64 != kIsF64) return -3;
-  return fused_pass_halo_any<Real>(I, C, post, phi, pf, ph, phn, pg, rhs, s);
+  return fused_pass_halo_any<Real>(I, C, post, phi, pf, ph, phn, pg, rhs,
+                                   tile, s);
 }
 
 }  // extern "C"

@@ -27,7 +27,12 @@ shared memory, and collide from there; the collide's copies are aligned
 the pass's pull tables, 16 bytes a load and a store where NX allows.
 A shard's chunk (parallel/halo.py `make_halo_multi_step`) is cut the same
 way, its pass pulling across the shard's edges from the exchanged rows
-and columns (`fused_pass_halo_kernel`); a one-step
+and columns: `fused_pass_rows_kernel` where the shard's NX is a multiple
+of 128 or 64 (every production shard; a block stages whole source row
+segments in 16-byte pieces and each thread reads its pulls shifted in
+shared memory), else the per-node `fused_pass_halo_kernel`
+(`shard_pass_tile` chooses by shape and alignment; `fused_pass(...,
+per_node=True)` forces it, for the comparison); a one-step
 call (`fused_step`) and a shard's two-launch step (`step_halo`) are a
 collide and a stream.  The order of every operation is the plain step's
 (ekpnp_torch/step.py), so the chunk equals its two-launch steps bit for
@@ -90,9 +95,11 @@ from ..step import PostCollision, collide_and_reflect, stream_and_bcs
 # plain-RHS collide on a pencil shard (.shard_x), and the shards' stream
 # launch (.halo: stream_bc_halo_kernel; on a pencil the wrap-column repair
 # of parallel/halo.py follows); then the shards' fused pass in the same
-# forms (.halo, .shard_x: fused_pass_halo_kernel); last, the row products
-# that took the tensor-core form (hartley_rows_tf32x3_kernel), which
-# hartley_rows_kernel counts as well
+# forms (.halo, .shard_x); then the row products that took the
+# tensor-core form (hartley_rows_tf32x3_kernel), which hartley_rows_kernel
+# counts as well; last, the shard passes that took the row-staged
+# fused_pass_rows_kernel, which their form counts as well (the others ran
+# the per-node fused_pass_halo_kernel)
 KERNELS = ("collide_kernel", "collide_kernel.hartley_x",
            "collide_kernel.phi_hx", "fused_pass_kernel",
            "fused_pass_kernel.hartley_x", "fused_pass_kernel.phi_hx",
@@ -102,7 +109,7 @@ KERNELS = ("collide_kernel", "collide_kernel.hartley_x",
            "stream_bc_kernel.halo", "fused_pass_kernel.halo",
            "fused_pass_kernel.hartley_x.halo",
            "fused_pass_kernel.phi_hx.halo", "fused_pass_kernel.shard_x",
-           "hartley_rows_kernel.tf32x3")
+           "hartley_rows_kernel.tf32x3", "fused_pass_rows_kernel")
 _FORMS = {(False, False): "", (True, False): ".hartley_x",
           (True, True): ".phi_hx"}
 # launches of each kernel form on the card, counted where it is launched
@@ -275,9 +282,12 @@ def _load():
         lib.ekpnp_stream_bc.argtypes = [ci, vp, vp] + [vp] * 5 + [vp]
         lib.ekpnp_stream_bc.restype = ci
         # is_f64, ints, consts, post (array), phi, out x 4, rhs, stream;
-        # the shard's: {post, lo, hi, xlo, xhi} x 4 and phi + halo (arrays)
+        # the shard's: {post, lo, hi, xlo, xhi} x 4 and phi + halo (arrays),
+        # and the tile before the stream
+        lib.ekpnp_fused_pass.argtypes = [ci, vp, vp, vp, vp] + [vp] * 6
+        lib.ekpnp_fused_pass_shard.argtypes = ([ci, vp, vp, vp, vp]
+                                               + [vp] * 5 + [ci, vp])
         for fn in (lib.ekpnp_fused_pass, lib.ekpnp_fused_pass_shard):
-            fn.argtypes = [ci, vp, vp, vp, vp] + [vp] * 6
             fn.restype = ci
         n_i, n_c = ctypes.c_int(), ctypes.c_int()
         lib.ekpnp_abi(ctypes.byref(n_i), ctypes.byref(n_c))
@@ -382,6 +392,31 @@ def hartley_rows_tc(dtype: torch.dtype, nx: int, *ptrs: int) -> bool:
     (f64, the odd widths, a misaligned block)."""
     return (dtype == torch.float32 and nx % 8 == 0
             and all(p % 16 == 0 for p in ptrs))
+
+
+def shard_pass_tile(ny: int, nx: int, *ptrs: int) -> int:
+    """The tile of a shard pass of (NY, NX) planes: 128 or 64, the row
+    segment of the row-staged fused_pass_rows_kernel (a 128-thread block
+    is one segment of a row, or two rows of a 64-wide shard), the larger
+    that divides NX, where a plane is whole blocks (NY NX a multiple of
+    128) and every pointer in `ptrs` is 16-byte aligned (the fields, and on
+    a slab their edge rows; a pencil's rows, NX + 2 wide, are copied value
+    by value); else 0, the per-node fused_pass_halo_kernel (the odd widths:
+    the cases' 16 and 50, their shards)."""
+    if any(p % 16 for p in ptrs) or (ny * nx) % 128:
+        return 0
+    return next((t for t in (128, 64) if nx % t == 0), 0)
+
+
+def _shard_tile(cfg: Config, pops, rows, cols) -> int:
+    """`shard_pass_tile` of a shard pass's tensors: its fields (f, h, hn,
+    g; None where inactive) and, on a slab (no `cols`), their edge
+    `rows`."""
+    ts = list(pops)
+    if cols is None:
+        ts += [t for pair in rows if pair for t in pair]
+    return shard_pass_tile(cfg.grid.ny, cfg.grid.nx,
+                           *(t.data_ptr() for t in ts if t is not None))
 
 
 def hartley_rows_grid(m: int, nx: int, itemsize: int, tc: bool = False):
@@ -806,10 +841,12 @@ def stream_bc(cfg: Config, pf, ph=None, phn=None, pg=None, out=None,
 
 
 def _fused_pass_plain_rhs(cfg: Config, name: str, pf, ph, phn, pg, phi,
-                          out, rows=None, cols=None, phi_halo=None):
+                          out, rows=None, cols=None, phi_halo=None,
+                          per_node=False):
     """The fused pass with the plain RHS (fused_pass_kernel, counted as
-    `name`; on a shard fused_pass_halo_kernel), or its plain version
-    for CPU tensors."""
+    `name`; on a shard fused_pass_rows_kernel where `shard_pass_tile`
+    finds a tile and not `per_node`, else fused_pass_halo_kernel), or its
+    plain version for CPU tensors."""
     if pf.device.type == "cpu":
         return fused_pass_reference(cfg, pf, ph, phn, pg, phi,
                                     hartley_x=False, rows=rows, cols=cols,
@@ -833,16 +870,20 @@ def _fused_pass_plain_rhs(cfg: Config, name: str, pf, ph, phn, pg, phi,
             srcs = [t for a, r, c in zip(pops, rows, cols or (None,) * 4)
                     for t in (a, *(r or none2), *(c or none2))]
             halo = phi_halo if phi_halo is not None else PhiHalo(None, None)
+            tile = 0 if per_node else _shard_tile(cfg, pops, rows, cols)
             _launch(lib.ekpnp_fused_pass_shard, name, is_f64,
                     ints.ctypes.data, consts.ctypes.data, _ptrs(*srcs),
-                    _ptrs(phi, *halo), *map(_ptr, out), _ptr(rhs), stream)
+                    _ptrs(phi, *halo), *map(_ptr, out), _ptr(rhs), tile,
+                    stream)
+            if tile:
+                launches["fused_pass_rows_kernel"] += 1
     return (*out, rhs)
 
 
 def fused_pass(cfg: Config, pf, ph=None, phn=None, pg=None, phi=None,
                out=None, *, hartley_x: Optional[bool] = None,
                phi_hx: bool = False, rows=None, cols=None,
-               phi_halo: Optional[PhiHalo] = None):
+               phi_halo: Optional[PhiHalo] = None, per_node: bool = False):
     """One pass of the time loop: the stream of step k-1 and the collide
     of step k.  (pf, ph, phn, pg): step k-1's post-collision set; phi:
     phi_k (psi_hx for phi_hx).  Returns step k's post-collision set and
@@ -860,9 +901,14 @@ def fused_pass(cfg: Config, pf, ph=None, phn=None, pg=None, phi=None,
     (n, NZ, NY) each, with the rows then NX + 2 wide (columns -1 .. NX,
     the corners the diagonal shard's): the .shard_x form.  `phi_halo`
     holds the shard's phi halo as `collide` takes it.  CUDA tensors launch
-    fused_pass_kernel, on a shard fused_pass_halo_kernel (counted under
-    the form's name), CPU tensors run `fused_pass_reference`.  `out` may
-    hold a preallocated population set that does not alias the inputs."""
+    fused_pass_kernel, on a shard the row-staged fused_pass_rows_kernel
+    where `shard_pass_tile` finds a tile (counted under the form's name
+    and under fused_pass_rows_kernel), else fused_pass_halo_kernel (counted
+    under the form's name); CPU tensors run `fused_pass_reference`.
+    per_node: fused_pass_halo_kernel whatever the tile (the per-node pass
+    held to the row-staged one bit for bit and timed beside it by
+    chip_smoke.py and scripts/torch_pass_ab.py).  `out` may hold a
+    preallocated population set that does not alias the inputs."""
     hartley_x = resolve_hartley_x(cfg, hartley_x, phi_hx)
     pops = (pf, ph, phn, pg)
     _check_phi_halo(cfg, phi_halo, hartley_x, pf.device, pf.dtype)
@@ -878,7 +924,7 @@ def fused_pass(cfg: Config, pf, ph=None, phn=None, pg=None, phi=None,
     if phi_hx:
         phi, phi_halo = _decode(cfg, phi, phi_halo)
     *pops, rhs = _fused_pass_plain_rhs(cfg, name, pf, ph, phn, pg, phi, out,
-                                       rows, cols, phi_halo)
+                                       rows, cols, phi_halo, per_node)
     if hartley_x:
         rhs = hartley_rows(rhs)
     return (*pops, rhs)

@@ -20,11 +20,16 @@ D3Q7 headline (uniform start; `*_d3q7_ms`):
   - `stream`: stream_bc_kernel on the plain collide's post-collision set,
     and `copy`, Tensor.copy_ of the same bytes into the same output
     (the stream's practical ceiling);
-  - where the checkout has the shard pass, on `ek-pnp-thermal` only: the
-    pass on shard 0 of slab 4 and of pencil 2x2 (4 shards on the card),
-    the plain collide there (`collide_kernel.halo` on the slab,
-    `.shard_x` on the pencil), the edge exchange of all shards, and the
-    sharded chunk's ms/step (20 steps, host clock).
+  - where the checkout has the shard pass, on `ek-pnp-thermal` only, on
+    shard 0 of slab 4 (256x64x257), pencil 2x2 (128x128x257), pencil 2x4
+    (64x128x257) and slab 8 (256x32x257), every shard on the card: the
+    pass (`shard_pass_*`: the plain-RHS `.halo` form on a slab, `.shard_x`
+    on a pencil), on a slab also the `.phi_hx.halo` form (`shard_phi_hx_*`,
+    its psi decode and RHS product included), where the checkout can force
+    it the per-node pass beside it (`shard_pass_per_node_*`), the plain
+    collide there (`collide_kernel.halo` on a slab, `.shard_x` on a
+    pencil), the stream (`stream_bc_kernel.halo`), the edge exchange of
+    all shards, and the sharded chunk's ms/step (20 steps, host clock).
 
 The arms run other, this, this, other; one line `AB {...}` each, after the
 card's name and power limit.
@@ -120,24 +125,50 @@ def arm(root, tag, build_only):
         from ekpnp_torch.parallel.mesh import (local_cfg, make_mesh, shard,
                                                shard_state)
 
-        for name, pencil in (("slab4", False), ("pencil2x2", True)):
-            mesh = make_mesh(["cuda"] * 4, pencil=pencil)
+        import inspect
+
+        from ekpnp_torch.ops.poisson import psi_hx_from_phi
+        from ekpnp_torch.parallel.halo import post_rows
+
+        forced = "per_node" in inspect.signature(fs.fused_pass).parameters
+        for name, n, pencil in (("slab4", 4, False), ("pencil2x2", 4, True),
+                                ("pencil2x4", 8, True), ("slab8", 8, False)):
+            mesh = make_mesh(["cuda"] * n, pencil=pencil)
             cfg_l = local_cfg(cfg, mesh)
             sh = shard_state(cfg, mesh, st)
             halos = phi_halos(mesh, sh.phi)
             posts = [fs.collide(cfg_l, *shard(sh, i)[:5], phi_halo=halos[i],
-                                hartley_x=False)[:4] for i in range(4)]
+                                hartley_x=False)[:4] for i in range(n)]
             rows, cols = post_edges(cfg_l, mesh, posts)[0]
             o = fs._empty_like_fields(cfg_l, posts[0][0])
             x0 = shard(sh, 0)[:5]
             res[f"shard_collide_{name}_ms"] = _events_ms(lambda: fs.collide(
                 cfg_l, *x0, post=o, phi_halo=halos[0], hartley_x=False))
+            pk = dict(out=o, rows=rows, cols=cols, phi_halo=halos[0],
+                      hartley_x=False)
             res[f"shard_pass_{name}_ms"] = _events_ms(lambda: fs.fused_pass(
-                cfg_l, *posts[0], sh.phi[0], out=o, rows=rows, cols=cols,
-                phi_halo=halos[0], hartley_x=False))
+                cfg_l, *posts[0], sh.phi[0], **pk))
+            if forced:
+                res[f"shard_pass_per_node_{name}_ms"] = _events_ms(
+                    lambda: fs.fused_pass(cfg_l, *posts[0], sh.phi[0],
+                                          per_node=True, **pk))
+            if not pencil:  # the phi_hx form: psi_hx in, its halo rows
+                psi = psi_hx_from_phi(cfg, sh.phi, mesh)
+                ph = phi_halos(mesh, psi)
+                pk = dict(pk, phi_halo=ph[0], hartley_x=None, phi_hx=True)
+                res[f"shard_phi_hx_{name}_ms"] = _events_ms(
+                    lambda: fs.fused_pass(cfg_l, *posts[0], psi[0], **pk))
+                if forced:
+                    res[f"shard_phi_hx_per_node_{name}_ms"] = _events_ms(
+                        lambda: fs.fused_pass(cfg_l, *posts[0], psi[0],
+                                              per_node=True, **pk))
+                del psi, ph
+            srows = post_rows(cfg_l, mesh, posts)[0]
+            res[f"shard_stream_{name}_ms"] = _events_ms(
+                lambda: fs.stream_bc(cfg_l, *posts[0], out=o, rows=srows))
             res[f"exchange_{name}_ms"] = _events_ms(
                 lambda: post_edges(cfg_l, mesh, posts), 10)
-            del posts, o, rows, cols, x0
+            del posts, o, rows, cols, x0, srows, pk
             sh = make_halo_multi_step(cfg, mesh, 2)(sh)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
