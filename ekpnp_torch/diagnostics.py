@@ -13,6 +13,12 @@ import torch
 
 from .config import Config
 from .state import State
+from .telemetry import PREFIX, span
+
+# series_point's span and its children (telemetry); on a mesh the gather
+# is the ekpnp_torch.gather_rows span of parallel/collectives.py
+SERIES = PREFIX + "series"
+MACRO, REDUCE, FINITE = SERIES + ".macro", SERIES + ".reduce", SERIES + ".finite"
 
 
 def wall_extrapolate(field):
@@ -65,28 +71,42 @@ def check_finite(state: State) -> bool:
 def series_point(cfg: Config, state: State, mesh=None):
     """(umax_uz, umax_mag, current, mean_T, finite) as 0-d tensors; with
     `mesh`, of a sharded state, on its first local shard's device (the
-    same values on every process)."""
+    same values on every process).  The ekpnp_torch.series span: .macro
+    the full-grid moments and E, .reduce the reductions, .finite the
+    guard."""
+    with span(SERIES):
+        return _series_point(cfg, state, mesh)
+
+
+def _series_point(cfg: Config, state: State, mesh):
     from .ops.collide import compute_macro
     from .ops.poisson import efield
 
     ek = cfg.physics.enable_ek
     thermal = cfg.physics.enable_thermal
     if mesh is None:
-        macro, _ = compute_macro(cfg, state)
-        m, E = macro, efield(cfg, state.phi) if ek else None
-        zero = torch.zeros((), dtype=m.rho.dtype, device=m.rho.device)
-        return (umax(m.u),
-                torch.sqrt(torch.max(torch.sum(m.u * m.u, dim=0))),
-                ionic_current(cfg, m.charge, m.chargen, E[2]) if ek else zero,
-                torch.mean(m.temp) if thermal else zero, _finite(state))
+        with span(MACRO):
+            m, _ = compute_macro(cfg, state)
+            E = efield(cfg, state.phi) if ek else None
+        with span(REDUCE):
+            zero = torch.zeros((), dtype=m.rho.dtype, device=m.rho.device)
+            vals = (umax(m.u),
+                    torch.sqrt(torch.max(torch.sum(m.u * m.u, dim=0))),
+                    ionic_current(cfg, m.charge, m.chargen, E[2]) if ek
+                    else zero, torch.mean(m.temp) if thermal else zero)
+        with span(FINITE):
+            return (*vals, _finite(state))
     from .parallel.collectives import gather_rows
     from .parallel.halo import shard_macros
     from .parallel.mesh import shard
 
-    parts = shard_macros(cfg, mesh, state)
+    with span(MACRO):
+        parts = shard_macros(cfg, mesh, state)
     first = parts[mesh.local[0]][0].rho
     dev = first.device
     zero = torch.zeros((), dtype=first.dtype, device=dev)
+    with span(FINITE):
+        finite = {i: _finite(shard(state, i)) for i in mesh.local}
 
     def row(i):
         """Shard i's partials: max uz, max |u|^2, its current, sum T and
@@ -95,10 +115,11 @@ def series_point(cfg: Config, state: State, mesh=None):
         return torch.stack([t.to(dev, first.dtype) for t in (
             umax(m.u), torch.max(torch.sum(m.u * m.u, dim=0)),
             ionic_current(cfg, m.charge, m.chargen, E[2]) if ek else zero,
-            torch.sum(m.temp) if thermal else zero,
-            _finite(shard(state, i)))])
+            torch.sum(m.temp) if thermal else zero, finite[i])])
 
-    rows = gather_rows(mesh, torch.stack([row(i) for i in mesh.local]))
+    with span(REDUCE):
+        local = torch.stack([row(i) for i in mesh.local])
+    rows = gather_rows(mesh, local)
     mean_t = rows[:, 3].sum() / cfg.grid.num_nodes if thermal else zero
     return (rows[:, 0].max(), torch.sqrt(rows[:, 1].max()),
             rows[:, 2].sum() if ek else zero, mean_t, torch.all(rows[:, 4] > 0))

@@ -18,6 +18,9 @@ from .device import resolve_device, torch_dtype
 from .ops.equilibrium import feq
 from .ops.pbe import pb_init
 from .state import Macro, State
+from .telemetry import PREFIX, span
+
+INIT = PREFIX + "init"
 
 
 class InitFields(NamedTuple):
@@ -53,20 +56,27 @@ def cold_fields(cfg: Config, dtype, device) -> InitFields:
 def initialize(cfg: Config, device="cuda", dtype=None,
                with_residual: bool = False):
     """Full cold start.  Returns (State, Macro), or (State, Macro,
-    pb_residual) with with_residual=True (None when EK is off)."""
-    dev = resolve_device(device)
-    dtype = torch_dtype(dtype or cfg.run.dtype)
-    fields = cold_fields(cfg, dtype, dev)
-    residual = None
-    if cfg.physics.enable_ek:
-        out = pb_init(cfg, fields.phi, with_residual=with_residual)
-        phi, charge, chargen, E = out[:4]
-        if with_residual:
-            residual = out[4]
-        fields = fields._replace(phi=phi, charge=charge, chargen=chargen, E=E)
-    macro = Macro(rho=fields.rho, u=fields.u, charge=fields.charge,
-                  chargen=fields.chargen, temp=fields.temp)
-    state = state_from_macro(cfg, macro, fields.phi, fields.E, t=0.0)
+    pb_residual) with with_residual=True (None when EK is off).  The
+    ekpnp_torch.init span, its children .cold_fields, .pb and .equilibria
+    (host time: the card may still run the last of their launches)."""
+    with span(INIT):
+        dev = resolve_device(device)
+        dtype = torch_dtype(dtype or cfg.run.dtype)
+        with span(INIT + ".cold_fields"):
+            fields = cold_fields(cfg, dtype, dev)
+        residual = None
+        if cfg.physics.enable_ek:
+            with span(INIT + ".pb"):
+                out = pb_init(cfg, fields.phi, with_residual=with_residual)
+            phi, charge, chargen, E = out[:4]
+            if with_residual:
+                residual = out[4]
+            fields = fields._replace(phi=phi, charge=charge, chargen=chargen,
+                                     E=E)
+        macro = Macro(rho=fields.rho, u=fields.u, charge=fields.charge,
+                      chargen=fields.chargen, temp=fields.temp)
+        with span(INIT + ".equilibria"):
+            state = state_from_macro(cfg, macro, fields.phi, fields.E, t=0.0)
     if with_residual:
         return state, macro, residual
     return state, macro

@@ -76,7 +76,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from typing import Optional
 
 import numpy as np
@@ -87,6 +86,7 @@ from ..ops.poisson import PhiHalo, charge_rhs, efield, phi_from_psi_hx
 from ..parallel.fft import _hartley_matrix, hartley_x_local
 from ..state import State
 from ..step import PostCollision, collide_and_reflect, stream_and_bcs
+from ..telemetry import PREFIX, launches, reset_launches, span  # noqa: F401
 
 # the collide launch of each form (plain RHS, hartley_x, phi_hx), the
 # fused pass of each form, the row product the x-Hartley forms add (every
@@ -113,7 +113,8 @@ KERNELS = ("collide_kernel", "collide_kernel.hartley_x",
 _FORMS = {(False, False): "", (True, False): ".hartley_x",
           (True, True): ".phi_hx"}
 # launches of each kernel form on the card, counted where it is launched
-launches = {name: 0 for name in KERNELS}
+# (the telemetry module's counter; reset_launches zeroes it)
+launches.update(dict.fromkeys(KERNELS, 0))
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "fused_step.cu")
@@ -141,12 +142,9 @@ ROWS_TILE = {4: (128, 128), 8: (128, 64), "tf32x3": (128, 128)}
 # the element type of each library, by the wrappers' is_f64
 REALS = {0: "float", 1: "double"}
 _libs = None
-build_info = {}  # seconds, paths, log of the build this process loaded
-
-
-def reset_launches() -> None:
-    for name in KERNELS:
-        launches[name] = 0
+# paths, log and seconds (the ekpnp_torch.build span's; 0 when cached) of
+# the build this process loaded
+build_info = {}
 
 
 def collide_form(hartley_x: bool, phi_hx: bool,
@@ -219,9 +217,18 @@ def build() -> dict:
     if not todo:
         build_info.update(paths=paths, seconds=0.0, log="(cached build)")
         return paths
+    with span(PREFIX + "build", device=False) as timed:
+        logs = _compile(todo, paths)
+    build_info.update(paths=paths, seconds=timed.seconds,
+                      log="".join(logs.values()))
+    return paths
+
+
+def _compile(todo, paths) -> dict:
+    """Run nvcc for the element types `todo` into `paths`; returns the
+    logs by element type."""
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.perf_counter()
     tmps, procs = {}, {}
     try:
         for k in todo:
@@ -251,16 +258,22 @@ def build() -> dict:
             for f in (tmp, tmp + ".log"):
                 if os.path.exists(f):
                     os.remove(f)
-    build_info.update(paths=paths, seconds=time.perf_counter() - t0,
-                      log="".join(logs.values()))
-    return paths
+    return logs
 
 
 def _load():
-    """The kernel libraries {is_f64: lib}, built and loaded at first use."""
+    """The kernel libraries {is_f64: lib}, built and loaded at first use
+    (that call is the ekpnp_torch.load span, nvcc its ekpnp_torch.build)."""
     global _libs
-    if _libs is not None:
-        return _libs
+    if _libs is None:
+        with span(PREFIX + "load", device=False):
+            _libs = _open_libs()
+    return _libs
+
+
+def _open_libs() -> dict:
+    """Build the libraries where this source has none, open them and check
+    their constant blocks against the Python packing."""
     vp, ip, ci = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_int
     want = (len(_INTS), len(_SCALARS) + 27 * len(_ARRAYS27) + 2 * 3 * 27)
     libs = {}
@@ -295,7 +308,6 @@ def _load():
             raise RuntimeError(f"kernel constant blocks {(n_i.value, n_c.value)}"
                                f" != Python packing {want}")
         libs[k] = lib
-    _libs = libs
     return libs
 
 

@@ -25,8 +25,17 @@ from ..ops.poisson import (phi_from_psi_hx, poisson_phi_from_rhs,
                            poisson_psi_hx_from_rhs, psi_hx_from_phi)
 from ..state import State
 from ..step import step as plain_step
+from ..telemetry import CHUNK, PREFIX, span
 from .fused_step import (_CBC, _empty_like_fields, collide, fused_pass,
                          fused_step, resolve_hartley_x, stream_bc)
+
+
+# the time loop's spans (telemetry): a chunk (multi_step, and the sharded
+# chunk of parallel/halo.py), its psi_hx codec, and in it at most one of
+# each of the others a step (a pass with its row products)
+ENCODE, DECODE = PREFIX + "encode", PREFIX + "decode"
+COLLIDE, SOLVE = PREFIX + "collide", PREFIX + "solve"
+PASS, STREAM = PREFIX + "pass", PREFIX + "stream"
 
 
 def step_fused(cfg: Config, state: State):
@@ -81,18 +90,22 @@ def _chunk(cfg: Config, state: State, n: int, phi_hx: bool = False) -> State:
     ek = cfg.physics.enable_ek
     dt = cfg.physics.dt(cfg.grid.dx)
     spare = (state.f, state.h, state.hn, state.g)
-    *post, rhs = collide(cfg, *spare, state.phi,
-                         post=_empty_like_fields(cfg, state.f), **form)
+    with span(COLLIDE):
+        *post, rhs = collide(cfg, *spare, state.phi,
+                             post=_empty_like_fields(cfg, state.f), **form)
     phi, t = state.phi, state.t
     for k in range(n):
         if ek:
-            phi = (poisson_psi_hx_from_rhs(cfg, rhs) if phi_hx else
-                   poisson_phi_from_rhs(cfg, rhs, rhs_hx=hx))
+            with span(SOLVE):
+                phi = (poisson_psi_hx_from_rhs(cfg, rhs) if phi_hx else
+                       poisson_phi_from_rhs(cfg, rhs, rhs_hx=hx))
         t = t + dt
         if k < n - 1:
-            *nxt, rhs = fused_pass(cfg, *post, phi, out=spare, **form)
+            with span(PASS):
+                *nxt, rhs = fused_pass(cfg, *post, phi, out=spare, **form)
             spare, post = tuple(post), nxt
-    f1, h1, hn1, g1 = stream_bc(cfg, *post, out=spare)
+    with span(STREAM):
+        f1, h1, hn1, g1 = stream_bc(cfg, *post, out=spare)
     return State(f=f1, h=h1, hn=hn1, g=g1, phi=phi, t=t)
 
 
@@ -104,9 +117,11 @@ def multi_step_rhs(cfg: Config, state: State, n: int) -> State:
 def multi_step_hx(cfg: Config, state: State, n: int) -> State:
     """n steps of `step_fused_hx`'s route, carrying phi as psi_hx: one
     encode, the chunk, one decode."""
-    state = state._replace(phi=psi_hx_from_phi(cfg, state.phi))
+    with span(ENCODE):
+        state = state._replace(phi=psi_hx_from_phi(cfg, state.phi))
     state = _chunk(cfg, state, n, phi_hx=True)
-    return state._replace(phi=phi_from_psi_hx(cfg, state.phi))
+    with span(DECODE):
+        return state._replace(phi=phi_from_psi_hx(cfg, state.phi))
 
 
 def multi_step(cfg: Config, state: State, n: int) -> State:
@@ -118,9 +133,10 @@ def multi_step(cfg: Config, state: State, n: int) -> State:
     package's multi_step donates its state).  Use only the returned state."""
     if n <= 0:
         return state
-    if phi_hx_capable(cfg):
-        return multi_step_hx(cfg, state, n)
-    return multi_step_rhs(cfg, state, n)
+    with span(CHUNK):
+        if phi_hx_capable(cfg):
+            return multi_step_hx(cfg, state, n)
+        return multi_step_rhs(cfg, state, n)
 
 
 class _StepDiff(torch.autograd.Function):

@@ -43,10 +43,20 @@ the two axes of an all_to_all, where the caller's extents (or
 `even_cut`'s) give it.  Received tensors are ready on the current
 stream when a call returns (`Work.wait`).  Nothing here is a kernel of
 the port.
+
+Telemetry: all_to_all and gather_rows are spans of their own (the
+ring_shift calls sit in parallel/halo.py's exchange spans); every call
+that sends or receives across processes adds one to
+`ekpnp_torch.collective.calls.<op>` and the bytes this process sends to
+`ekpnp_torch.collective.bytes.<op>`.
 """
 from __future__ import annotations
 
 import torch
+
+from ..telemetry import PREFIX, count, span
+
+COLLECTIVE = PREFIX + "collective."
 
 
 def _groups(mesh, axis):
@@ -76,13 +86,19 @@ def _wire(t):
     return torch.view_as_real(t) if t.is_complex() else t
 
 
-class _Messages:
-    """The cross-process messages of one call, in the global pair order;
-    `run` sends them all and waits."""
+def _counted(op: str, sent: int) -> None:
+    count(COLLECTIVE + "calls." + op)
+    count(COLLECTIVE + "bytes." + op, sent)
 
-    def __init__(self, mesh):
-        self.mesh = mesh
+
+class _Messages:
+    """The cross-process messages of one call of `op`, in the global pair
+    order; `run` sends them all and waits."""
+
+    def __init__(self, mesh, op: str):
+        self.mesh, self.op = mesh, op
         self.ops = []
+        self.sent = 0
 
     def pair(self, src: int, dst: int, send=None, recv=None):
         """The move of shard src's `send` (when src is here) into shard
@@ -91,7 +107,9 @@ class _Messages:
 
         tag = dst * self.mesh.size + src
         if send is not None:
-            self.ops.append(dist.P2POp(dist.isend, _wire(send.contiguous()),
+            wire = _wire(send.contiguous())
+            self.sent += wire.numel() * wire.element_size()
+            self.ops.append(dist.P2POp(dist.isend, wire,
                                        self.mesh.owner(dst), tag=tag))
         if recv is not None:
             self.ops.append(dist.P2POp(dist.irecv, _wire(recv),
@@ -102,16 +120,18 @@ class _Messages:
         import torch.distributed as dist
 
         if self.ops:
+            _counted(self.op, self.sent)
             for work in dist.batch_isend_irecv(self.ops):
                 work.wait()
         self.ops = []
+        self.sent = 0
 
 
 def ring_shift(mesh, shards, axis, shift: int):
     """shards[i] of the result is the shard `shift` places before i along
     `axis` (periodic), on shard i's device."""
     out = [None] * len(shards)
-    msgs = _Messages(mesh)
+    msgs = _Messages(mesh, "ring_shift")
     for group in _groups(mesh, axis):
         n = len(group)
         for k, i in enumerate(group):
@@ -139,8 +159,15 @@ def all_to_all(mesh, shards, axis, split_axis: int, cat_axis: int,
     the pieces a shard joins, per sender in group order; by default the
     receiving shard's own extent for every piece.  Both follow from the
     mesh and the layout, so no process asks another for a shape."""
+    with span(PREFIX + "all_to_all"):
+        return _all_to_all(mesh, shards, axis, split_axis, cat_axis,
+                           split_sizes, cat_sizes)
+
+
+def _all_to_all(mesh, shards, axis, split_axis, cat_axis, split_sizes,
+                cat_sizes):
     out = [None] * len(shards)
-    msgs = _Messages(mesh)
+    msgs = _Messages(mesh, "all_to_all")
     parts = {}
     for group in _groups(mesh, axis):
         n = len(group)
@@ -183,10 +210,13 @@ def gather_rows(mesh, rows):
         return rows
     import torch.distributed as dist
 
-    rows = rows.contiguous()
-    out = [torch.empty_like(rows) for _ in range(mesh.world)]
-    dist.all_gather(out, rows)
-    return torch.cat(out)
+    with span(PREFIX + "gather_rows"):
+        rows = rows.contiguous()
+        _counted("gather_rows",
+                 rows.numel() * rows.element_size() * (mesh.world - 1))
+        out = [torch.empty_like(rows) for _ in range(mesh.world)]
+        dist.all_gather(out, rows)
+        return torch.cat(out)
 
 
 def to_rank0(mesh, shards):
@@ -196,7 +226,7 @@ def to_rank0(mesh, shards):
     if mesh.world == 1:
         return shards
     out = list(shards)
-    msgs = _Messages(mesh)
+    msgs = _Messages(mesh, "to_rank0")
     like = shards[mesh.local[0]]
     for i in range(mesh.size):
         if mesh.owner(i) == 0:

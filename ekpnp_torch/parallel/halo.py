@@ -63,12 +63,18 @@ import torch
 
 from ..config import Config
 from ..kernels import fused_step as fs
-from ..kernels.step import phi_hx_capable
+from ..kernels.step import (COLLIDE, DECODE, ENCODE, PASS, SOLVE, STREAM,
+                            phi_hx_capable)
 from ..ops.poisson import (PhiHalo, efield, phi_from_psi_hx,
                            poisson_phi_from_rhs, poisson_psi_hx_from_rhs,
                            psi_hx_from_phi)
 from ..state import State
+from ..telemetry import CHUNK, PREFIX, span
 from .collectives import ring_shift
+
+# the edge exchanges' span (telemetry): the phi halo, a set of post edges,
+# the pencil's wrap-column repair, each around its ring_shift calls
+EXCHANGE = PREFIX + "exchange"
 from .mesh import Mesh, fields, local_cfg, shard
 
 
@@ -102,6 +108,11 @@ def phi_halos(mesh: Mesh, phi):
     """The phi (or psi_hx) halo of every shard: rows y = -1 and y = NYl
     from the y-neighbours, and on a pencil columns x = -1 and x = NXl from
     the x-neighbours."""
+    with span(EXCHANGE):
+        return _phi_halos(mesh, phi)
+
+
+def _phi_halos(mesh: Mesh, phi):
     edge = lambda sel: mesh.each(lambda i: sel(phi[i]).contiguous())
     ylo = ring_shift(mesh, edge(lambda p: p[:, -1]), "y", 1)
     yhi = ring_shift(mesh, edge(lambda p: p[:, 0]), "y", -1)
@@ -117,6 +128,11 @@ def _exchange(cfg_l: Config, mesh: Mesh, posts, axis: str, pick):
     cuts from shard i's field k at its last (edge -1, sign +1) or first
     (edge 0, sign -1) row or column, received from the neighbour before /
     after along mesh axis `axis`; None for an inactive field."""
+    with span(EXCHANGE):
+        return _exchange_fields(cfg_l, mesh, posts, axis, pick)
+
+
+def _exchange_fields(cfg_l: Config, mesh: Mesh, posts, axis: str, pick):
     per_field = []
     for k, lat in enumerate(_lattices(cfg_l)):
         if posts[mesh.local[0]][k] is None:
@@ -187,6 +203,11 @@ def fix_x_columns(cfg_l: Config, mesh: Mesh, outs) -> None:
     streams; a scalar's wall planes are reflections at the node and keep
     their values, except the ions' top plane under zerograd-top, which
     streams from plane NZ-2."""
+    with span(EXCHANGE):
+        _fix_x_columns(cfg_l, mesh, outs)
+
+
+def _fix_x_columns(cfg_l: Config, mesh: Mesh, outs) -> None:
     nz = cfg_l.grid.nz
     zg = cfg_l.physics.charge_bc == "zerograd-top"
     for k, lat in enumerate(_lattices(cfg_l)):
@@ -326,43 +347,57 @@ def make_halo_multi_step(cfg: Config, mesh: Mesh, n: int,
     def run(state: State) -> State:
         if n <= 0:
             return state
+        with span(CHUNK):
+            return chunk(state)
+
+    def chunk(state: State) -> State:
         if hx:
-            state = state._replace(phi=psi_hx_from_phi(cfg, state.phi, mesh))
+            with span(ENCODE):
+                state = state._replace(phi=psi_hx_from_phi(cfg, state.phi,
+                                                           mesh))
         phi, t = state.phi, state.t
         spare = each(lambda i: tuple(shard(state, i)[:4]))
         halos = phi_halos(mesh, phi) if ek else [None] * mesh.size
-        outs = each(lambda i: fs.collide(
-            cfg_l, *spare[i], None if phi is None else phi[i],
-            post=fs._empty_like_fields(cfg_l, spare[i][0]),
-            phi_halo=halos[i], **form))
+        with span(COLLIDE):
+            outs = each(lambda i: fs.collide(
+                cfg_l, *spare[i], None if phi is None else phi[i],
+                post=fs._empty_like_fields(cfg_l, spare[i][0]),
+                phi_halo=halos[i], **form))
         posts, rhs = each(lambda i: tuple(outs[i][:4])), fields(mesh, outs, 4)
         del state, outs
         for k in range(n):
             last = k == n - 1
             edges, join = exchange(posts, last)
             if ek:
-                phi = (poisson_psi_hx_from_rhs(cfg, rhs, mesh) if hx else
-                       poisson_phi_from_rhs(cfg, rhs, mesh, rhs_hx=rhs_hx))
+                with span(SOLVE):
+                    phi = (poisson_psi_hx_from_rhs(cfg, rhs, mesh) if hx else
+                           poisson_phi_from_rhs(cfg, rhs, mesh,
+                                                rhs_hx=rhs_hx))
                 if not last:
                     halos = phi_halos(mesh, phi)
             t = t + dt
             join()
             if last:
                 break
-            nxt = each(lambda i: fs.fused_pass(
-                cfg_l, *posts[i], None if phi is None else phi[i],
-                out=spare[i], rows=edges[i][0], cols=edges[i][1],
-                phi_halo=halos[i], **form))
+            with span(PASS):
+                nxt = each(lambda i: fs.fused_pass(
+                    cfg_l, *posts[i], None if phi is None else phi[i],
+                    out=spare[i], rows=edges[i][0], cols=edges[i][1],
+                    phi_halo=halos[i], **form))
             spare, posts = posts, each(lambda i: tuple(nxt[i][:4]))
             rhs = fields(mesh, nxt, 4)
-        outs = each(lambda i: fs.stream_bc(cfg_l, *posts[i], out=spare[i],
-                                           rows=edges[i][0]))
+        with span(STREAM):
+            outs = each(lambda i: fs.stream_bc(cfg_l, *posts[i],
+                                               out=spare[i],
+                                               rows=edges[i][0]))
         if mesh.pencil:
             fix_x_columns(cfg_l, mesh, outs)
         state = State(*(fields(mesh, outs, k) for k in range(4)), phi=phi,
                       t=t)
         if hx:
-            state = state._replace(phi=phi_from_psi_hx(cfg, state.phi, mesh))
+            with span(DECODE):
+                state = state._replace(phi=phi_from_psi_hx(cfg, state.phi,
+                                                           mesh))
         return state
 
     return run

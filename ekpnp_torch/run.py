@@ -202,6 +202,23 @@ def _clock() -> float:
     return time.perf_counter()
 
 
+# the run's spans (telemetry): a dump on the launching thread (zone 0 and
+# the final), one on the writer thread, the drain of the writer after the
+# clock
+DUMP, WRITER, DRAIN = ("ekpnp_torch.dump", "ekpnp_torch.writer",
+                       "ekpnp_torch.drain")
+# the set-up spans --profile's table lists: the library load and its build,
+# the cold start and its parts, zone 0, the chunks (the first: the warm-up)
+SETUP = tuple("ekpnp_torch." + s for s in (
+    "load", "build", "init", "init.cold_fields", "init.pb",
+    "init.equilibria", "dump", "chunk"))
+
+
+def _count_seconds(stat):
+    """(instances, host seconds) of a span's Stat (None: none ran)."""
+    return (0, 0.0) if stat is None else (stat.count, stat.seconds)
+
+
 def _prepare(dev) -> None:
     """Load the kernel library the time loop launches (nvcc builds it at
     first use), on the card; the CPU runs the plain versions."""
@@ -370,13 +387,14 @@ def _run(args, rank, world):
     cfg = build_config(args)
 
     from .diagnostics import dimensionless_banner, series_point
-    from .init import initialize
+    from .init import INIT, initialize
     from .io import checkpoint as ckpt
     from .io import tecplot
     from .kernels import fused_step as fs
     from .kernels.step import multi_step, step_fused
     from .ops.collide import compute_macro
     from .ops.poisson import efield
+    from . import telemetry
     from .parallel import mesh as pmesh
     from .step import step as plain_step
 
@@ -437,12 +455,11 @@ def _run(args, rank, world):
             state = load(args.resume, cfg, device=dev)
     else:
         print("Initializing (PB double-layer relaxation)...")
-        t_init = time.perf_counter()
         state, _, pb_res = initialize(cfg, device=dev, with_residual=True)
         sync()
         if pb_res is not None:
             print(f"  PB init: {cfg.physics.pb_iters} iterations in "
-                  f"{time.perf_counter() - t_init:.2f} s, final relative "
+                  f"{telemetry.stat(INIT).last:.2f} s, final relative "
                   f"update {float(pb_res):.3e} (tune with --set pb_iters=N)")
     if mesh is not None and not resumed_sharded:
         state = pmesh.shard_state(cfg, mesh, state)
@@ -507,9 +524,10 @@ def _run(args, rank, world):
                       phi, E, t)
 
     def dump_now(d, st, kind):
-        snap = snapshot(st)
-        snap = _host(snap, _record(snap))
-        write(d, snap, kind)
+        with telemetry.span(DUMP, device=False):
+            snap = snapshot(st)
+            snap = _host(snap, _record(snap))
+            write(d, snap, kind)
         return snap
 
     prof = None
@@ -523,9 +541,8 @@ def _run(args, rank, world):
         fumax = stack.enter_context(open(here("umax.dat"), "w"))
         fcsv = stack.enter_context(open(here("series.csv"), "w"))
         fcsv.write("step,t,umax_uz,umax_mag,current,mean_T\n")
-        t_zone0 = time.perf_counter()
         dump_now(0, state, "first")
-        t_zone0 = time.perf_counter() - t_zone0
+        t_zone0 = telemetry.stat(DUMP).last
 
         # one step before the clock starts (the reference times the loop
         # only); when configured it seeds the convection pattern through
@@ -560,7 +577,9 @@ def _run(args, rank, world):
                 [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
             prof = profile(activities=acts)
             prof.start()
-        writer_s = []  # each cadence dump's copy, formatting and write
+        # the cadence dumps' copies, formatting and writes before the loop
+        writer0 = _count_seconds(telemetry.stat(WRITER))
+        counters0 = dict(telemetry.counters)
         fs.reset_launches()
         t0 = _clock()
         try:
@@ -588,9 +607,8 @@ def _run(args, rank, world):
                     snap = snapshot(state)
 
                     def _dump(snap=snap, ev=_record(snap), d=done):
-                        t_w = time.perf_counter()
-                        write(d, _host(snap, ev), "save")
-                        writer_s.append(time.perf_counter() - t_w)
+                        with telemetry.span(WRITER, device=False):
+                            write(d, _host(snap, ev), "save")
 
                     aio.submit(_dump)
             sync()
@@ -601,9 +619,9 @@ def _run(args, rank, world):
             if prof is not None:
                 _write_trace(prof, args.profile)
                 prof = None
-            t_drain = time.perf_counter()
-            aio.close()  # drain the events and dumps before the final zone
-            t_drain = time.perf_counter() - t_drain
+                spans = telemetry.table(done - steps_warm, counters0, SETUP)
+            with telemetry.span(DRAIN, device=False) as drain:
+                aio.close()  # drain the events and dumps before the final zone
         except _NonFinite as e:
             print(f"ERROR: {e}; aborting", file=sys.stderr)
             if prof is not None:  # the trace up to the abort
@@ -644,10 +662,15 @@ def _run(args, rank, world):
            if runtime > 0 else 0.0)
     print(f"           bandwidth: {gib:.1f} (GiB/s), all-field population "
           f"traffic")
-    print(f"       writer thread: {len(writer_s)} dumps in "
-          f"{sum(writer_s):.3f} s (host copy, formatting, write), drained "
-          f"{t_drain:.3f} s after the clock; zone 0 {t_zone0:.3f} s")
+    dumps, writer_s = (a - b for a, b in zip(
+        _count_seconds(telemetry.stat(WRITER)), writer0))
+    print(f"       writer thread: {dumps} dumps in "
+          f"{writer_s:.3f} s (host copy, formatting, write), drained "
+          f"{drain.seconds:.3f} s after the clock; zone 0 {t_zone0:.3f} s")
     print(f"     kernel launches: {json.dumps(launches)}")
+    if args.profile:
+        print(" ----- spans and counters of the profiled loop -----")
+        print(spans)
     return 0
 
 

@@ -21,6 +21,7 @@ joins the Gloo group at the `file://` store and runs <job> (a mesh of
 JOBS, or `fail`: process 1 raises, process 0 must not wait for it).
 Every launch has a timeout, so a hang fails the test.
 """
+import json
 import os
 import socket
 import subprocess
@@ -107,10 +108,11 @@ def collectives(mesh):
 def drive(mesh, out, job):
     """The distributed path on `mesh` from the same numpy start, written
     under `out`: collectives (coll_<rank>.npz), dumps at steps 0 and 3
-    (io/), the series point (series_<rank>.npy), the per-process
-    checkpoint (ckpt/) and its round trip on this process
-    (roundtrip_<rank>.txt), and the state gathered on rank 0
-    (state.npz)."""
+    (io/), the chunk's collective counters (counters_<rank>.json), the
+    series point (series_<rank>.npy), the per-process checkpoint (ckpt/)
+    and its round trip on this process (roundtrip_<rank>.txt), and the
+    state gathered on rank 0 (state.npz)."""
+    from ekpnp_torch import telemetry
     from ekpnp_torch.diagnostics import series_point
     from ekpnp_torch.io.checkpoint import load_sharded, save_sharded
     from ekpnp_torch.io.fields import save_fields_sharded
@@ -133,7 +135,11 @@ def drive(mesh, out, job):
 
     state = shard_state(cfg, mesh, port_state(cfg, make_state_np(cfg, 41)))
     dump(0, state)
+    before = dict(telemetry.counters)
     state = make_sharded_multi_step(cfg, mesh, STEPS)(state)
+    with open(os.path.join(out, f"counters_{rank}.json"), "w") as fh:
+        json.dump({k: v - before.get(k, 0)
+                   for k, v in telemetry.counters.items()}, fh)
     dump(STEPS, state)
     np.save(os.path.join(out, f"series_{rank}.npy"),
             np.array([float(x) for x in series_point(cfg, state, mesh)]))
@@ -276,6 +282,38 @@ def test_collectives_across_processes(runs, job):
         with np.load(two / f"coll_{r}.npz") as z:
             assert {int(k.split("/")[1]) for k in z.files} == set(
                 range(r * per, (r + 1) * per))
+
+
+@pytest.mark.parametrize("job", sorted(JOBS))
+def test_the_chunks_collective_counters(runs, job):
+    """Over processes, every process counts the message batches and the
+    bytes it sends of the sharded chunk's edge exchanges (ring_shift) and
+    solve (all_to_all); on the slab the exchanges exactly: per process one
+    piece a call, the phi (psi_hx) halo's two rows before the collide and
+    after each solve but the last, and each active field's post edge rows
+    (lo and hi) each step.  The one-process mesh sends nothing."""
+    from ekpnp_torch.kernels.fused_step import edge_dirs
+
+    two, one = runs[job]
+    world, shards, pencil = JOBS[job]
+    C = "ekpnp_torch.collective."
+    assert not any(json.loads((one / "counters_0.json").read_text()).values())
+    got = [json.loads((two / f"counters_{r}.json").read_text())
+           for r in range(world)]
+    for g in got:
+        for op in ("ring_shift", "all_to_all"):
+            assert g[C + "calls." + op] > 0 and g[C + "bytes." + op] > 0, op
+    if pencil:
+        return
+    cfg = cfg_of(job)
+    nz, nx, item = cfg.grid.nz, cfg.grid.nx, 8
+    fields = [cfg.lattice, cfg.scalar_lat, cfg.scalar_lat, cfg.scalar_lat]
+    rows = sum(len(edge_dirs(lat, s)) for lat in fields for s in (1, -1))
+    calls = 2 * STEPS + STEPS * 2 * len(fields)
+    sent = (2 * STEPS * nz * nx + STEPS * rows * nz * nx) * item
+    for g in got:
+        assert (g[C + "calls.ring_shift"], g[C + "bytes.ring_shift"]) == \
+            (calls, sent)
 
 
 @pytest.mark.parametrize("job", sorted(JOBS))
