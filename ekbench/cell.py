@@ -6,14 +6,16 @@ that many processes, one card each, over NCCL (Gloo on the CPU), as `run
 pod --distributed --mesh slab` does: this process is rank 0 and starts
 the others itself (`python3 -m ekbench.run ... --rank r --port p`).  Every
 process runs the cold start and keeps its shard.  Process 0 decides when
-the window ends, receives the other processes' snapshot shards for the
-check and their peak memory and trace readings, and prints the result.
+the window ends.  Each process checks its own shard on its own card (the
+reference steps its block, `reference.shards.Blocks`); process 0 receives
+the other processes' pieces of the compared numbers, their peak memory and
+trace readings, and prints the result.
 """
 from __future__ import annotations
 
-import ast
 import dataclasses
 import datetime
+import json
 import os
 import socket
 import statistics
@@ -81,11 +83,11 @@ class Group:
 
     def post(self, key: str, value):
         if self.world > 1:
-            self.store.set(f"ekbench/{key}/{self.rank}", repr(value))
+            self.store.set(f"ekbench/{key}/{self.rank}", json.dumps(value))
 
     def gather(self, key: str) -> list:
         """Every process's posted value (read by process 0)."""
-        return [ast.literal_eval(self.store.get(f"ekbench/{key}/{r}").decode())
+        return [json.loads(self.store.get(f"ekbench/{key}/{r}").decode())
                 for r in range(self.world)]
 
     def close(self) -> int:
@@ -127,6 +129,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         raise ValueError("the harness runs slab meshes over processes")
     spawn = ["--root", cell.root, "--workload", cell.name, "--seed", str(seed),
              "--seconds", repr(seconds), "--trace", str(int(traced))]
+    if control:
+        spawn.append("--control")
     if device.type == "cuda":
         from ekpnp_torch.kernels import fused_step
 
@@ -184,50 +188,46 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
 # the check
 # ---------------------------------------------------------------------------
 
-def _gather_full(bufs: dict, group, P, device):
-    """The whole-grid state from every process's shard (process 0; the
-    others send theirs and get None).  A slab shard r holds the y rows of
-    `reference.shards.rows`."""
-    import torch.distributed as dist
-
-    out = {} if group.rank == 0 else None
-    for k in sorted(bufs):
-        mine = bufs[k].contiguous()
-        if group.rank:
-            dist.send(mine, dst=0)
-            continue
-        full = torch.empty(mine.shape[:-2] + (P.ny, P.nx), dtype=mine.dtype,
-                           device=device)
-        for r in range(group.world):
-            y0, y1 = shards.rows(P.ny, group.world, r)
-            if r == 0:
-                full[..., y0:y1, :] = mine
-            else:
-                part = torch.empty_like(mine)
-                dist.recv(part, src=r)
-                full[..., y0:y1, :] = part
-                del part
-        out[k] = full
+def _pieces(P, bufs: dict, n: int, blocks, control: bool) -> dict:
+    """This process's pieces of the chunk's numbers: the reference run
+    over its own block from the state that went into the chunk, held to
+    what came out (and, with `control`, the control's and an unchanged
+    chunk's)."""
+    st_in = bufs["in"]
+    ref = lbm.run(P, st_in, n, blocks=blocks)
+    ref_out = lbm.own(ref, blocks)
+    out = {"chunk": compare.chunk_pieces(P, st_in, bufs.pop("out"), ref_out,
+                                         moments=control),
+           "series": lbm.series_pieces(P, ref, blocks)}
+    if control:
+        ctl = lbm.run(P, st_in, n, tf32=True, blocks=blocks)
+        out["control"] = compare.chunk_pieces(P, st_in, lbm.own(ctl, blocks),
+                                              ref_out, moments=True)
+        out["control_series"] = lbm.series_pieces(P, ctl, blocks)
+        del ctl
+        out["unchanged"] = compare.chunk_pieces(P, st_in, st_in, ref_out)
     return out
 
 
 def check(cell, keep: dict, win: dict, seed: int, group, device,
           control: bool = False):
     """(numbers compared, the control's numbers where `control`), on
-    process 0; the workers only send their shards."""
+    process 0; the other processes check their shards and post the
+    pieces."""
     P = params.from_config(cell.config)
-    bufs = keep.pop("bufs")
-    if group.world > 1:
-        st_in = _gather_full(bufs["in"], group, P, device)
-        st_out = _gather_full(bufs["out"], group, P, device)
-    else:
-        st_in, st_out = bufs["in"], bufs["out"]
-    del bufs
+    blocks = shards.Blocks(group.world, group.rank)
+    with solve.full_f32():
+        mine = _pieces(P, keep.pop("bufs"), keep["n"], blocks, control)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    group.post("pieces", mine)
     if group.rank:
         return {}, {}
-    dtype = st_in["f"].dtype
+    every = group.gather("pieces") if group.world > 1 else [mine]
+    part = {k: shards.combine([p[k] for p in every]) for k in mine}
     numbers, extra = {}, {}
     with solve.full_f32():
+        dtype = keep["init"]["f"].dtype
         cold = solve.pb_cold_start(P, device, dtype)
         numbers.update(compare.check_cold(P, keep["cold"], cold))
         ref_init = compare.initial_planes(P, cold, cell.traffic, seed,
@@ -242,20 +242,16 @@ def check(cell, keep: dict, win: dict, seed: int, group, device,
                 ref_init))
             del cold_c
         del cold, ref_init
-        ref_out = lbm.run(P, st_in, keep["n"])
-        detail = extra.setdefault("program", {}) if control else None
-        numbers.update(compare.check_chunk(P, st_in, st_out, ref_out, detail))
-        ref_series = lbm.series(P, ref_out)
-        if control:
-            del st_out
-            ctl = lbm.run(P, st_in, keep["n"], tf32=True)
-            cdet = extra.setdefault("control_detail", {})
-            extra.update(compare.check_chunk(P, st_in, ctl, ref_out, cdet))
-            ctl_series = lbm.series(P, ctl)
-            extra.update(compare.check_series(
-                [ctl_series[k] for k in compare.SERIES], ref_series, cdet))
-            del ctl
-            extra["unchanged"] = compare.check_chunk(P, st_in, st_in, ref_out)
+    detail = extra.setdefault("program", {}) if control else None
+    numbers.update(compare.check_chunk(part["chunk"], detail))
+    ref_series = lbm.series_values(P, part["series"])
+    if control:
+        cdet = extra.setdefault("control_detail", {})
+        extra.update(compare.check_chunk(part["control"], cdet))
+        ctl_series = lbm.series_values(P, part["control_series"])
+        extra.update(compare.check_series(
+            [ctl_series[k] for k in compare.SERIES], ref_series, cdet))
+        extra["unchanged"] = compare.check_chunk(part["unchanged"])
     landed = {i: vals for i, vals, _ in win["landed"]}
     got = landed.get(win["check"])
     numbers.update(compare.check_series(got[:4], ref_series, detail) if got

@@ -4,12 +4,16 @@ the plain reference (`ekbench.reference`), once the window has closed.
 The reference follows the program from the program's own state over the
 chunk the seed picked: it takes the state that went into that chunk, runs
 its n steps and compares the state that came out and the series values
-the program reported after it.  The start, which that skips, is checked by
-itself: the reference's own Poisson-Boltzmann cold start against the
-program's, and the equilibrium populations it builds from that and the
-seed's perturbation against the program's initial state on the z planes
-the seed drew.  The numbers compared (each with its limit in
-`limits/<cell>.json`):
+the program reported after it.  On a slab mesh each process does so for
+its own shard (`reference.shards.Blocks`): every number of the chunk is a
+largest value or a sum over the nodes, so each process gives its pieces
+(`chunk_pieces`, `lbm.series_pieces`) and process 0 joins them
+(`shards.combine`) before it divides.  The start, which that skips, is
+checked by itself on process 0: the reference's own Poisson-Boltzmann
+cold start against the program's, and the equilibrium populations it
+builds from that and the seed's perturbation against the program's
+initial state on the z planes the seed drew.  The numbers compared (each
+with its limit in `limits/<cell>.json`):
 
   cold.phi     max|phi - phi_ref| / max|phi_ref - lifting| after the cold start
   cold.ions    max over c+, c- of max|c - c_ref| / max|c_ref - chargeinf|
@@ -39,10 +43,13 @@ def _maxabs(a) -> float:
     return float(a.abs().max())
 
 
+def _ratio(d: float, scale: float) -> float:
+    return d / scale if scale > 0 else float("inf") if d > 0 else 0.0
+
+
 def _rel(a, b, scale) -> float:
     """max|a - b| / scale (the comparisons here are float64 numbers)."""
-    d = max(_maxabs(x - y) for x, y in zip(a, b))
-    return d / scale if scale > 0 else float("inf") if d > 0 else 0.0
+    return _ratio(max(_maxabs(x - y) for x, y in zip(a, b)), scale)
 
 
 def _lifting_gap(P, phi) -> float:
@@ -64,7 +71,8 @@ def check_cold(P, prog_cold: dict, ref_cold) -> dict:
 
 def initial_planes(P, ref_cold, traffic, seed, planes, device):
     """The reference's initial populations on `planes`, from its own cold
-    start and the seed's perturbation (whole fields, then the planes)."""
+    start and the seed's perturbation (whole scalar fields, then the
+    equilibria on the planes alone)."""
     phi, c, cn = ref_cold
     dtype = phi.dtype
     rho = torch.full(P.shape, P.rho0, dtype=dtype, device=device)
@@ -73,9 +81,11 @@ def initial_planes(P, ref_cold, traffic, seed, planes, device):
     d = perturbation(P.shape, traffic, seed, device)
     rho, u, c, cn, temp = apply(rho, u, c, cn, temp, d, P.TH)
     del d
-    st = lbm.initial_state(P, rho, u, c, cn, temp, phi, solve.efield(P, phi))
     idx = torch.tensor(planes, device=device)
-    return {k: torch.index_select(st[k], -3, idx) for k in POPS}
+    at = lambda a: torch.index_select(a, -3, idx)
+    st = lbm.initial_state(P, at(rho), at(u), at(c), at(cn), at(temp),
+                           at(phi), at(solve.efield(P, phi)))
+    return {k: st[k] for k in POPS}
 
 
 def check_init(prog_init: dict, ref_init: dict) -> dict:
@@ -83,9 +93,12 @@ def check_init(prog_init: dict, ref_init: dict) -> dict:
                              _maxabs(ref_init[k].double())) for k in POPS)}
 
 
-def field_errors(st_in: dict, prog_out: dict, ref_out: dict) -> dict:
-    """Per population field: the largest error, the field's largest value
-    and the chunk's largest change, direction by direction (float64)."""
+def chunk_pieces(P, st_in: dict, prog_out: dict, ref_out: dict,
+                 moments: bool = False) -> dict:
+    """A block's largest values for the chunk's numbers (float64): per
+    population field the largest error, value and change over the chunk,
+    direction by direction; phi's largest error and distance from the
+    lifting; with `moments`, the ion concentrations' too."""
     out = {}
     for k in POPS:
         err = mag = change = 0.0
@@ -94,31 +107,36 @@ def field_errors(st_in: dict, prog_out: dict, ref_out: dict) -> dict:
             err = max(err, _maxabs(prog_out[k][d].double() - r))
             mag = max(mag, _maxabs(r))
             change = max(change, _maxabs(r - st_in[k][d].double()))
-        out[k] = (err, mag, change)
+        out.update({f"{k}.err": err, f"{k}.mag": mag, f"{k}.change": change})
+    out["phi.err"] = _maxabs(prog_out["phi"].double() - ref_out["phi"].double())
+    out["phi.gap"] = _lifting_gap(P, ref_out["phi"])
+    if moments:
+        for k in ("h", "hn"):
+            c_r = ref_out[k].double().sum(0)
+            out[f"{k}.moment_err"] = _maxabs(prog_out[k].double().sum(0) - c_r)
+            out[f"{k}.edl"] = _maxabs(c_r - P.chargeinf)
+            out[f"{k}.moment_change"] = _maxabs(
+                c_r - st_in[k].double().sum(0))
     return out
 
 
-def check_chunk(P, st_in: dict, prog_out: dict, ref_out: dict,
-                detail: dict = None) -> dict:
-    errs = field_errors(st_in, prog_out, ref_out)
+def check_chunk(p: dict, detail: dict = None) -> dict:
+    """The chunk's numbers from the combined pieces of every block."""
     if detail is not None:
-        for k, (e, m, c) in errs.items():
+        for k in POPS:
+            e, m, c = p[f"{k}.err"], p[f"{k}.mag"], p[f"{k}.change"]
             detail[f"{k}.err_over_value"] = e / m if m else float("inf")
             detail[f"{k}.err_over_change"] = e / c if c else float("inf")
             detail[f"{k}.change_over_value"] = c / m if m else float("inf")
         for k in ("h", "hn"):
-            c_r = ref_out[k].double().sum(0)
-            c_p = prog_out[k].double().sum(0)
-            c_i = st_in[k].double().sum(0)
-            detail[f"{k}.moment_err_over_edl"] = _maxabs(c_p - c_r) / _maxabs(
-                c_r - P.chargeinf)
-            detail[f"{k}.moment_err_over_change"] = _maxabs(c_p - c_r) / _maxabs(
-                c_r - c_i)
-    return {"chunk.pops": max(e / m if m else float("inf")
-                              for e, m, _ in errs.values()),
-            "chunk.phi": _rel([prog_out["phi"].double()],
-                              [ref_out["phi"].double()],
-                              _lifting_gap(P, ref_out["phi"]))}
+            detail[f"{k}.moment_err_over_edl"] = (p[f"{k}.moment_err"]
+                                                  / p[f"{k}.edl"])
+            detail[f"{k}.moment_err_over_change"] = (p[f"{k}.moment_err"]
+                                                     / p[f"{k}.moment_change"])
+    return {"chunk.pops": max(p[f"{k}.err"] / p[f"{k}.mag"]
+                              if p[f"{k}.mag"] else float("inf")
+                              for k in POPS),
+            "chunk.phi": _ratio(p["phi.err"], p["phi.gap"])}
 
 
 def check_series(prog_vals, ref_vals: dict, detail: dict = None) -> dict:

@@ -14,5 +14,6 @@ which is the control of the comparison (`ekbench.compare`).
   solve.py    DST-I / Hartley solve, E = -grad(phi), the PB cold start
   lbm.py      moments, equilibria, TRT collide, bounce-back, stream, the
               scalar wall rules, one step, the series values
-  shards.py   how a slab mesh cuts the grid (the pod's shard split)
+  shards.py   how a slab mesh cuts the grid, and one process's block of it
+              with its halo rows (the per-shard check)
 """

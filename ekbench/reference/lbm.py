@@ -6,8 +6,15 @@ A state is a dict of tensors: populations `f` (fluid), `h`, `hn` (the two
 ion species), `g` (temperature), each (Q, NZ, NY, NX) with the direction
 first, and `phi` (NZ, NY, NX).  Every field is worked one direction pair
 (d, opp d) at a time, so a step holds the old and the new populations and
-a few (NZ, NY, NX) temporaries at most: that is how the 256^3 and the pod
-grids fit beside the program's snapshots on one card.
+a few (NZ, NY, NX) temporaries at most.
+
+A process of a slab mesh steps its own block (`shards.Blocks`): its y
+rows with a halo of the neighbours' pre-collision edge rows (phi's twice
+as wide), so every node of the block is worked by the same operations as
+in the whole grid.  The next phi is solved from the whole grid's charges,
+gathered from every block (scalars, 4 B a node), by every process alike.
+A process then holds its block's populations, their halo and the gathered
+scalars, never the whole grid's populations.
 
 Physics (upstream LBM.cu:162-463, 488-495, 1148-1202, 1862-1958,
 2102-2218), in SI units with lattice speed 1/CFL:
@@ -22,9 +29,12 @@ Physics (upstream LBM.cu:162-463, 488-495, 1148-1202, 1862-1958,
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .params import Params
+from .shards import WHOLE
 from .solve import efield, potential
 
 POPS = ("f", "h", "hn", "g")
@@ -159,40 +169,76 @@ def collide_stream(P: Params, name: str, pre, m, v, mc=None):
     return out
 
 
-def step(P: Params, st: dict, tf32: bool = False) -> dict:
-    """One coupled step: collide and stream every population with phi's E,
-    then solve for the next phi from this step's pre-collision charges.
-    `st` is replaced field by field (its old tensors are dropped as soon
-    as the new ones exist); returns it."""
-    mc = macro(P, st)
+def step(P: Params, st: dict, tf32: bool = False, blocks=WHOLE) -> dict:
+    """One coupled step of a block's state, its fields with their halo
+    (`run`): collide and stream every population with phi's E, refresh
+    the new populations' halo, then solve for the next phi from this
+    step's pre-collision charges.  `st` is replaced field by field (its
+    old tensors are dropped as soon as the new ones exist); returns it."""
+    h = blocks.halo
+    mc = macro(P, st, blocks.inner(efield(P, st["phi"]), h))
     u, E = mc["u"], mc["E"]
     drift = {"f": (mc["rho"], u), "h": (mc["charge"], u + P.K * E),
              "hn": (mc["chargen"], u + P.Kn * E), "g": (mc["temp"], u)}
     for name in POPS:
         m, v = drift[name]
         st[name] = collide_stream(P, name, st[name], m, v, mc)
-    st["phi"] = potential(P, mc["charge"], mc["chargen"], tf32)
+        blocks.refresh(st[name], h)
+    charge, chargen = (blocks.whole(blocks.inner(mc[k], h))
+                       for k in ("charge", "chargen"))
+    del mc, u, E, drift
+    st["phi"] = blocks.own(potential(P, charge, chargen, tf32), 2 * h)
     return st
 
 
-def run(P: Params, st: dict, n: int, tf32: bool = False) -> dict:
-    """n steps from a copy of the dict `st` (its tensors are not written)."""
-    st = dict(st)
+def _halo(k: str, blocks) -> int:
+    """A field's halo rows a side: phi's twice the populations'."""
+    return 2 * blocks.halo if k == "phi" else blocks.halo
+
+
+def run(P: Params, st: dict, n: int, tf32: bool = False,
+        blocks=WHOLE) -> dict:
+    """n steps from the dict `st` of a block's own rows (its tensors are
+    not written).  Returns the state with its halo; `own` cuts it to the
+    block's rows."""
+    st = {k: blocks.extend(v, _halo(k, blocks)) for k, v in st.items()}
     for _ in range(n):
-        st = step(P, st, tf32)
+        st = step(P, st, tf32, blocks)
     return st
+
+
+def own(st: dict, blocks=WHOLE) -> dict:
+    """The block's own rows of a state with its halo (views)."""
+    return {k: blocks.inner(v, _halo(k, blocks)) for k, v in st.items()}
+
+
+def series_pieces(P: Params, st: dict, blocks=WHOLE) -> dict:
+    """A block's share of the series values, from its state with its halo
+    (`run`): the largest uz and |u|^2 over its nodes, its partial sum of
+    the ionic current through the upper plate and of the temperature
+    (float64); `shards.combine` joins the blocks'."""
+    h = blocks.halo
+    mc = macro(P, st, blocks.inner(efield(P, st["phi"]), h))
+    u = blocks.inner(mc["u"], h)
+    c, cn, ez = (blocks.inner(a, h) for a in (mc["charge"], mc["chargen"],
+                                               mc["E"][2]))
+    top = lambda a: 2.0 * a[-2] - a[-3]
+    cur = ((top(c) - top(cn)) * ez[-1]).double()
+    return {"umax": float(u[2].max()), "umag2": float((u * u).sum(0).max()),
+            "current.sum": float(cur.sum()),
+            "temp.sum": float(blocks.inner(mc["temp"], h).double().sum())}
+
+
+def series_values(P: Params, pieces: dict) -> dict:
+    """The series values, as float64 numbers, of the blocks' combined
+    pieces: max uz, max |u|, the ionic current through the upper plate K
+    dz^2 sum_xy (c+ - c-) Ez with the charges extrapolated linearly to the
+    plate, and the mean temperature."""
+    return dict(umax=pieces["umax"], umag=math.sqrt(pieces["umag2"]),
+                current=pieces["current.sum"] * P.K * P.dz * P.dz,
+                mean_T=pieces["temp.sum"] / P.nodes)
 
 
 def series(P: Params, st: dict):
-    """The series values of a state, as float64 numbers: max uz, max |u|,
-    the ionic current through the upper plate K dz^2 sum_xy (c+ - c-) Ez
-    with the charges extrapolated linearly to the plate, and the mean
-    temperature."""
-    mc = macro(P, st)
-    u = mc["u"]
-    top = lambda c: 2.0 * c[-2] - c[-3]
-    cur = ((top(mc["charge"]) - top(mc["chargen"])) * mc["E"][2][-1]).double()
-    return dict(umax=float(u[2].max()),
-                umag=float(torch.sqrt((u * u).sum(0).max().double())),
-                current=float(cur.sum()) * P.K * P.dz * P.dz,
-                mean_T=float(mc["temp"].double().mean()))
+    """The series values of a whole-grid state."""
+    return series_values(P, series_pieces(P, st))

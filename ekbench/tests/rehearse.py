@@ -10,9 +10,9 @@ skipping only its look for a card.
 --fault breaks the timed path underneath the harness, in the program's
 own functions: a chunk that returns its state unchanged; a chunk that
 leaves half the grid (the upper z half) as it came in; the ion
-populations of one node altered by 1e-3 where the chunk produces them;
-the edge exchange between
-processes left out (each shard gets its own edges back).  The mesh's
+populations of one node altered by 1e-3 where the chunk produces them (on
+a mesh, in the last process's shard, never process 0's); the edge
+exchange between processes left out (each shard gets its own edges back).  The mesh's
 other processes run `ekbench.tests.rehearse_worker` with the same fault.
 """
 from __future__ import annotations
@@ -83,16 +83,32 @@ def plant(fault: str) -> None:
             return out
         kstep.multi_step = half
     elif fault == "altered":
-        whole = kstep.multi_step
+        import ekpnp_torch.parallel.mesh as pmesh
+
+        whole, sharded = kstep.multi_step, pmesh.make_sharded_multi_step
+
+        def alter(cfg, ions):
+            for a in ions:
+                a[:, cfg.grid.nz // 3, a.shape[-2] // 2, a.shape[-1] // 2] *= (
+                    1.0 + 1e-3)
 
         def altered(cfg, state, n):
             out = whole(cfg, state, n)
-            node = (slice(None), cfg.grid.nz // 3, cfg.grid.ny // 2,
-                    cfg.grid.nx // 2)
-            for k in ("h", "hn"):
-                getattr(out, k)[node] *= 1.0 + 1e-3
+            alter(cfg, (out.h, out.hn))
             return out
+
+        def altered_mesh(cfg, mesh, n):
+            chunk = sharded(cfg, mesh, n)
+
+            def run(state):
+                out = chunk(state)
+                if mesh.rank == mesh.world - 1:
+                    i = mesh.local[0]
+                    alter(cfg, (out.h[i], out.hn[i]))
+                return out
+            return run
         kstep.multi_step = altered
+        pmesh.make_sharded_multi_step = altered_mesh
     elif fault == "exchange":
         def own(mesh, shards, axis, shift):
             return [None if s is None else s.clone() for s in shards]

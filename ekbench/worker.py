@@ -2,7 +2,10 @@
 `ekbench.run`; it prints nothing: process 0 reports the run.
 
     python3 -m ekbench.worker --root R --workload W --seed S --seconds T \\
-        --trace 0|1 --rank r --port p --device cuda|cpu
+        --trace 0|1 --rank r --port p --device cuda|cpu [--control]
+
+--control: its shard's pieces of the control's numbers too, as process 0
+asks of every process when it reads the control (`ekbench.calibrate`).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ def main(argv=None) -> int:
     for flag in ("--seed", "--trace", "--rank", "--port"):
         ap.add_argument(flag, type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--control", action="store_true")
     args = ap.parse_args(argv)
     from .manifest import load
     from .run import cache_dirs
@@ -30,7 +34,7 @@ def main(argv=None) -> int:
 
     run_cell(load(args.workload, args.root), args.seed, args.seconds,
              bool(args.trace), torch.device(args.device), t_start,
-             rank=args.rank, port=args.port)
+             rank=args.rank, port=args.port, control=args.control)
     return 0
 
 
